@@ -12,7 +12,8 @@ reference's Mesh BVH, Mesh.hs:69-113):
     per-ray stack walk of the megakernel's 'bvh2' phases;
   - build_bvh: DFS order with *skip links* (on a box miss jump to
     node.skip, on a hit fall through to node+1), used for the
-    stackless point queries over big CSG member sets.
+    stackless point queries over big CSG member sets and K3's block
+    walk (mesh_kernel).
 
 The builders are pure numpy; glome_tpu's C++ builder
 (glome_tpu/native/bvh_builder.cpp) emits identical tables on the

@@ -48,15 +48,6 @@ TAG_DEPTH = 4
 # difference-B solids and members of wide intersections).
 CHEAP_CONSTRAINTS_MAX = 24
 
-# groups at or below this size are intersected by dense brute force (a
-# lockstep scan over prim chunks): on a TPU dense VPU work beats
-# divergent per-tile tree traversal up to ~1-2k prims (honest chained
-# timings, tools/profile_honest.py: 2.8k-sphere lattice 53 ms dense vs
-# 14 ms BVH; 1k transformed cones 17 ms dense vs 91 ms BVH -- per-prim
-# matrix gathers dominate the transformed BVH leaf tests, so
-# transformed groups stay dense regardless of size).
-ACCEL_MIN_SIZE = 2048
-
 # primitive type tags (group order is irrelevant; kernels dispatch on this)
 PTYPES = ("sphere", "plane", "box", "triangle", "trianglenorm", "disc",
           "cylinder", "cone")
@@ -88,15 +79,12 @@ class PrimGroup:
     # for 'inline': static constraint list [(positive, [(gi, local_idx)])],
     # shared by every prim of the group (resolved after packing)
     constraints: Optional[list] = None
-    # acceleration structure (accel.BvhFlat), attached after packing for
-    # bounded non-deferred groups
-    accel: Optional[object] = None
     # shared-vertex mesh source (reference Mesh.hs:27-42): when set, the
     # device pytree carries {verts[, norms]} and the per-prim p1..p3
     # (n1..n3) params are DIFFERENTIABLE vertex gathers materialized by
     # group_device_params -- gradients w.r.t. a vertex accumulate over
     # every triangle sharing it.  `params` stays the host-side
-    # materialized copy (bounds / accel builds).  Keys: verts (V,3) f64,
+    # materialized copy (bounds / BVH builds).  Keys: verts (V,3) f64,
     # tri (T,3) i32 [, norms (Vn,3), tri_n (T,3)].
     mesh_src: Optional[Dict[str, np.ndarray]] = None
 
@@ -214,15 +202,27 @@ def group_device_params(g: PrimGroup, ga):
     if g.mesh_src is None:
         return ga
     verts = torch.as_tensor(ga["verts"])
-    tri = torch.as_tensor(g.mesh_src["tri"], device=verts.device)
+    tri = _mesh_index(g, "tri", verts.device)
     out = {"p1": verts[tri[:, 0]], "p2": verts[tri[:, 1]],
            "p3": verts[tri[:, 2]]}
     if g.ptype == "trianglenorm":
         norms = torch.as_tensor(ga["norms"])
-        trin = torch.as_tensor(g.mesh_src["tri_n"], device=norms.device)
+        trin = _mesh_index(g, "tri_n", norms.device)
         out.update(n1=norms[trin[:, 0]], n2=norms[trin[:, 1]],
                    n3=norms[trin[:, 2]])
     return out
+
+
+def _mesh_index(g: PrimGroup, key: str, device):
+    """Device copy of a mesh group's static (T, 3) index array
+    (mesh_src["tri"] or ["tri_n"]), made once per device and cached on
+    the group: every intersect, shadow and finalize call gathers
+    through it."""
+    cache = g.__dict__.setdefault("_dev_index", {})
+    ck = (key, str(device))
+    if ck not in cache:
+        cache[ck] = torch.as_tensor(g.mesh_src[key], device=device)
+    return cache[ck]
 
 
 def materialize_scene_params(sc: PackedScene, garrs):
@@ -990,8 +990,7 @@ class Compiler:
             return ("inline", (rec.csg_id, own))
         return ("deferred", None)
 
-    def pack(self, lights: Sequence[Light],
-             accel_min_size: int = ACCEL_MIN_SIZE) -> CompiledScene:
+    def pack(self, lights: Sequence[Light]) -> CompiledScene:
         packed_scenes = []
         serial_loc: Dict[int, Tuple[int, int, int]] = {}
         group_builds = []
@@ -1066,9 +1065,10 @@ class Compiler:
                     excl=[pack_clauses(cs, sg) for cs, sg in cb.excl]))
             packed_scenes.append(PackedScene(glist, csgs))
 
-        # resolve inline CSG constraints now that every prim has a home,
-        # and attach per-group BVHs for bounded non-deferred groups
-        from . import accel as _accel
+        # resolve inline CSG constraints now that every prim has a home
+        # (glome_tpu also attaches a skip-link BVH to every big group
+        # here; the port's plan builds the trees its kernels walk, so it
+        # builds none)
         for build, g, recs, vkey in group_builds:
             if vkey[0] == "inline":
                 cid, own = vkey[1]
@@ -1086,10 +1086,6 @@ class Compiler:
                                for gi2, lis in sorted(bygroup.items())]
                     cons.append((signs[ci], members))
                 g.constraints = cons
-            if (g.ptype != "plane" and g.vclass not in ("deferred", "convex")
-                    and g.m_inv is None and g.size > accel_min_size):
-                bmin, bmax = _accel.group_bounds(g)
-                g.accel = _accel.build_bvh(bmin, bmax)
 
         # per-texture reachable refract/warp material indices (for masking
         # secondary traces)
@@ -1126,16 +1122,13 @@ class Compiler:
         )
 
 
-def compile_scene(solid: S.Solid, lights: Sequence[Light] = (),
-                  accel_min_size: int = ACCEL_MIN_SIZE) -> CompiledScene:
-    """Compile a solid DAG (+ lights) into flattened SoA tables.
-
-    Groups larger than accel_min_size get a BVH; smaller groups are
-    intersected by a dense prim-chunk scan (faster on TPU)."""
+def compile_scene(solid: S.Solid, lights: Sequence[Light] = ()) \
+        -> CompiledScene:
+    """Compile a solid DAG (+ lights) into flattened SoA tables."""
     c = Compiler()
     root = c.compile_scene_solid(solid)
     assert root == 0
-    return c.pack(lights, accel_min_size=accel_min_size)
+    return c.pack(lights)
 
 
 def to_torch(arrays, device):

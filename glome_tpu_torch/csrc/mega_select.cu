@@ -31,6 +31,7 @@
 #include <limits.h>
 
 #include "prims.cuh"
+#include "walk.cuh"
 
 #define MEGA_STACK_MAX 64
 #define GLOME_DELTA 1.0e-4f
@@ -86,11 +87,6 @@
 #define KIND_CONVEX 2
 #define KIND_DEFERRED 3
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz;
-  float ivx, ivy, ivz;
-};
-
 struct Tabs {
   const float* __restrict__ pf;
   const int* __restrict__ pi;
@@ -99,40 +95,6 @@ struct Tabs {
   const float* __restrict__ bb;
   const int* __restrict__ meta;
 };
-
-// world-space entry/exit distances of one prim (PF row `prm`)
-__device__ __forceinline__ void prim_candidates(int ptype, const float* prm,
-                                                bool xf, int nfld,
-                                                const Ray& r, float& t0,
-                                                float& t1) {
-  if (!xf) {
-    prim_t(ptype, prm, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t0, t1);
-    return;
-  }
-  const float* m = prm + nfld;
-  float pox = m[0] * r.ox + m[1] * r.oy + m[2] * r.oz + m[3];
-  float poy = m[4] * r.ox + m[5] * r.oy + m[6] * r.oz + m[7];
-  float poz = m[8] * r.ox + m[9] * r.oy + m[10] * r.oz + m[11];
-  float pdx = m[0] * r.dx + m[1] * r.dy + m[2] * r.dz;
-  float pdy = m[4] * r.dx + m[5] * r.dy + m[6] * r.dz;
-  float pdz = m[8] * r.dx + m[9] * r.dy + m[10] * r.dz;
-  float ils = 1.0f / sqrtf(pdx * pdx + pdy * pdy + pdz * pdz);
-  prim_t(ptype, prm, pox, poy, poz, pdx * ils, pdy * ils, pdz * ils, t0, t1);
-  if (fabsf(t0) < GLOME_INF) t0 *= ils;
-  if (fabsf(t1) < GLOME_INF) t1 *= ils;
-}
-
-// slab test of an AABB (bmin xyz, bmax xyz) against the ray and a t limit
-__device__ __forceinline__ bool box_live(const float* b, const Ray& r,
-                                         float lim, float& near) {
-  float t1x = (b[0] - r.ox) * r.ivx, t2x = (b[3] - r.ox) * r.ivx;
-  float t1y = (b[1] - r.oy) * r.ivy, t2y = (b[4] - r.oy) * r.ivy;
-  float t1z = (b[2] - r.oz) * r.ivz, t2z = (b[5] - r.oz) * r.ivz;
-  near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-  float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                    fmaxf(t1z, t2z));
-  return (near <= far) && (far > 0.0f) && (near < lim);
-}
 
 __device__ __forceinline__ bool point_in_node(const float* b, float px,
                                               float py, float pz) {
@@ -249,6 +211,7 @@ __device__ int clause_first(const Tabs& T, const int* cl, float px, float py,
 }
 
 // full candidate test + strict-< merge of one prim of a dense/bvh2 phase
+template <class Ray>
 __device__ __forceinline__ void prim_test(const Tabs& T, const int* ph,
                                           int q, const Ray& r, float& bt,
                                           int& bw) {
@@ -281,6 +244,7 @@ __device__ __forceinline__ bool prim_visible(const Tabs& T, const int* ph,
   return shadow ? (flags >= 2) : (flags % 2 == 1);
 }
 
+template <class Ray>
 __device__ void run_dense(const Tabs& T, const int* ph, const Ray& r,
                           int shadow, float seed, float& bt, int& bw) {
   int bbi = ph[PH_BB];
@@ -294,6 +258,7 @@ __device__ void run_dense(const Tabs& T, const int* ph, const Ray& r,
 }
 
 // near-child-first walk over the strictly binary bvh2 tree
+template <class Ray>
 __device__ void run_bvh2(const Tabs& T, const int* ph, const Ray& r,
                          int shadow, float seed, float& bt, int& bw) {
   const float* nf = T.nf + ph[PH_NF];
@@ -350,6 +315,7 @@ __device__ void run_bvh2(const Tabs& T, const int* ph, const Ray& r,
 }
 
 // exact world [t_in, t_out] of one convex member
+template <class Ray>
 __device__ __forceinline__ void member_interval(const Tabs& T, const int* cv,
                                                 const Ray& r, float& t0,
                                                 float& t1) {
@@ -385,12 +351,14 @@ __device__ __forceinline__ void member_interval(const Tabs& T, const int* cv,
   } else {
     prim_t(ptype, p, ox, oy, oz, dx, dy, dz, t0, t1);
   }
+  r.count_prim();
   if (xf) {
     if (fabsf(t0) < GLOME_INF) t0 *= ils;
     if (fabsf(t1) < GLOME_INF) t1 *= ils;
   }
 }
 
+template <class Ray>
 __device__ void run_convex(const Tabs& T, const int* ph, const Ray& r,
                            float& bt, int& bw) {
   float t_in = -GLOME_INF, t_out = GLOME_INF;
@@ -419,6 +387,7 @@ __device__ void run_convex(const Tabs& T, const int* ph, const Ray& r,
 }
 
 // one deferred CSG prim (Csg.hs:33-54)
+template <class Ray>
 __device__ void run_deferred(const Tabs& T, const int* ph, const Ray& r,
                              float& bt, int& bw, int& ba) {
   float t0, t1;
@@ -480,24 +449,18 @@ __device__ void run_deferred(const Tabs& T, const int* ph, const Ray& r,
   }
 }
 
+// kTally: also write each ray's work tally (walk.cuh RayT)
+template <bool kTally>
 __global__ void __launch_bounds__(128)
     mega_select_kernel(const float* __restrict__ rays, int n, Tabs T,
                        int n_phases, int shadow, float* __restrict__ out_t,
-                       int* __restrict__ out_w, int* __restrict__ out_a) {
+                       int* __restrict__ out_w, int* __restrict__ out_a,
+                       int* __restrict__ tally) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Ray r;
-  r.ox = rays[i];
-  r.oy = rays[n + i];
-  r.oz = rays[2 * n + i];
-  r.dx = rays[3 * n + i];
-  r.dy = rays[4 * n + i];
-  r.dz = rays[5 * n + i];
+  RayT<kTally> r = load_ray<kTally>(rays, n, i);
   float seed = rays[6 * n + i];
   float sid = rays[7 * n + i];
-  r.ivx = 1.0f / (r.dx == 0.0f ? 1e-20f : r.dx);
-  r.ivy = 1.0f / (r.dy == 0.0f ? 1e-20f : r.dy);
-  r.ivz = 1.0f / (r.dz == 0.0f ? 1e-20f : r.dz);
   float bt = seed;
   int bw = -1;
   int ba = -1;
@@ -520,6 +483,7 @@ __global__ void __launch_bounds__(128)
   out_t[i] = bt;
   out_w[i] = bw;
   out_a[i] = ba;
+  r.store_tally(tally, n, i);
 }
 
 extern "C" int glome_mega_select(const float* rays, int n, const float* pf,
@@ -527,18 +491,18 @@ extern "C" int glome_mega_select(const float* rays, int n, const float* pf,
                                  const int* ni, const float* bb,
                                  const int* meta, int n_phases, int shadow,
                                  float* out_t, int* out_w, int* out_a,
-                                 void* stream) {
+                                 int* tally, void* stream) {
   if (n <= 0) return 0;
   Tabs T{pf, pi, nf, ni, bb, meta};
   const int threads = 128;
   int blocks = (n + threads - 1) / threads;
-  mega_select_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      rays, n, T, n_phases, shadow, out_t, out_w, out_a);
+  if (tally)
+    mega_select_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        rays, n, T, n_phases, shadow, out_t, out_w, out_a, tally);
+  else
+    mega_select_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        rays, n, T, n_phases, shadow, out_t, out_w, out_a, tally);
   return (int)cudaGetLastError();
 }
 
 extern "C" int glome_mega_stack_max() { return MEGA_STACK_MAX; }
-
-extern "C" const char* glome_cuda_error_name(int err) {
-  return cudaGetErrorName((cudaError_t)err);
-}

@@ -2,9 +2,10 @@
 
 glome_tpu/intersect.py holds two pipelines: the jnp pass-per-group path
 (its CPU oracle) and the megakernel path.  The port keeps only the
-megakernel path: the table entries route every batch through
-megakernel.mega_select (K1 on CUDA tensors, its plain torch version on
-CPU tensors) and the differentiable finalize.  The Hit record keeps
+megakernel path: the table entries route every batch through the select
+kernels (K1 megakernel.mega_select, then K2/K3 for groups too big for
+it; CUDA kernels on CUDA tensors, their plain torch versions on CPU
+tensors) and the differentiable finalize.  The Hit record keeps
 glome_tpu's layout, so the tests compare like with like.
 """
 
@@ -72,16 +73,16 @@ def _guard_dead(table):
 
 
 def intersect_multi_table(compiled, arrays, table,
-                          select=MK.mega_select) -> Hit:
+                          select: str = MK.KERNELS) -> Hit:
     """Nearest hits of a ray table: (8, N) float32 component planes
     [ox,oy,oz,dx,dy,dz,tmax,sid] (dead lanes tmax 0, sid -1).  `select`
-    is the K1 entry (default mega_select; mega_select_plain runs the
-    plain version on any device)."""
+    names the kernel set (megakernel.KERNELS, or PLAIN to run the plain
+    versions on any device)."""
     return MK.mega_intersect_table(compiled, arrays, _guard_dead(table),
                                    select=select)
 
 
-def shadow_query_table(compiled, arrays, table, select=MK.mega_select):
+def shadow_query_table(compiled, arrays, table, select: str = MK.KERNELS):
     """Any-hit occlusion of a ray table as in intersect_multi_table
     (row 6 = segment tmax); returns (N,) bool blocked."""
     return MK.mega_shadow_table(compiled, arrays, _guard_dead(table),

@@ -16,6 +16,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,7 +34,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-MEGA_SOURCES = ("mega_select.cu", "prims.cuh")
+# each library: its .cu source first, then the headers it includes
+MEGA_SOURCES = ("mega_select.cu", "prims.cuh", "walk.cuh")
+BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh")
+MESH_SOURCES = ("mesh_block_select.cu", "prims.cuh", "walk.cuh")
+LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
+             "glome_mesh": MESH_SOURCES}
 
 # loaded libraries by path; the build log of each (nvcc + ptxas -v)
 _LIBS = {}
@@ -76,27 +84,101 @@ def build(sources, name: str) -> str:
     return out
 
 
-def mega_select_lib():
-    """The loaded K1 library (csrc/mega_select.cu), built on first use."""
-    path = build(MEGA_SOURCES, "glome_mega")
+def _load(name: str, setup):
+    path = build(LIBRARIES[name], name)
     lib = _LIBS.get(path)
     if lib is None:
         lib = ctypes.CDLL(path)
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.glome_mega_select.argtypes = [vp, i32, vp, vp, vp, vp, vp, vp,
-                                          i32, i32, vp, vp, vp, vp]
-        lib.glome_mega_select.restype = i32
-        lib.glome_mega_stack_max.argtypes = []
-        lib.glome_mega_stack_max.restype = i32
-        lib.glome_cuda_error_name.argtypes = [i32]
+        lib.glome_cuda_error_name.argtypes = [ctypes.c_int]
         lib.glome_cuda_error_name.restype = ctypes.c_char_p
-        from .megakernel import STACK_MAX
-        if lib.glome_mega_stack_max() != STACK_MAX:
-            raise RuntimeError("csrc/mega_select.cu MEGA_STACK_MAX != "
-                               "megakernel.STACK_MAX")
+        setup(lib)
         _LIBS[path] = lib
     return lib
 
 
-def cuda_error_name(err: int) -> str:
-    return mega_select_lib().glome_cuda_error_name(err).decode()
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+
+
+def _setup_mega(lib):
+    lib.glome_mega_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _vp, _vp,
+                                      _vp, _i32, _i32, _vp, _vp, _vp, _vp,
+                                      _vp]
+    lib.glome_mega_select.restype = _i32
+    lib.glome_mega_stack_max.argtypes = []
+    lib.glome_mega_stack_max.restype = _i32
+    from .megakernel import STACK_MAX
+    if lib.glome_mega_stack_max() != STACK_MAX:
+        raise RuntimeError("csrc/mega_select.cu MEGA_STACK_MAX != "
+                           "megakernel.STACK_MAX")
+
+
+def _setup_block(lib):
+    lib.glome_block_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _vp, _i32,
+                                       _i32, _i32, _i32, _i32, _i32, _vp,
+                                       _vp, _i32, _vp, _vp, _vp, _vp]
+    lib.glome_block_select.restype = _i32
+    lib.glome_block_stack_max.argtypes = []
+    lib.glome_block_stack_max.restype = _i32
+    from .block_kernel import STACK_MAX
+    if lib.glome_block_stack_max() != STACK_MAX:
+        raise RuntimeError("csrc/block_select.cu BLOCK_STACK_MAX != "
+                           "block_kernel.STACK_MAX")
+
+
+def _setup_mesh(lib):
+    lib.glome_mesh_block_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _i32,
+                                            _vp, _i32, _i32, _vp, _vp, _vp,
+                                            _vp]
+    lib.glome_mesh_block_select.restype = _i32
+
+
+def mega_select_lib():
+    """The loaded K1 library (csrc/mega_select.cu), built on first use."""
+    return _load("glome_mega", _setup_mega)
+
+
+def block_select_lib():
+    """The loaded K2 library (csrc/block_select.cu), built on first use."""
+    return _load("glome_block", _setup_block)
+
+
+def mesh_select_lib():
+    """The loaded K3 library (csrc/mesh_block_select.cu), built on first
+    use."""
+    return _load("glome_mesh", _setup_mesh)
+
+
+def load_all():
+    """Run the three loaders at once, so the three nvcc builds overlap
+    (chip_smoke.py builds every kernel inside its time limit); returns
+    the paths of K1's, K2's and K3's libraries."""
+    with ThreadPoolExecutor(3) as pool:
+        futs = [pool.submit(f) for f in
+                (mega_select_lib, block_select_lib, mesh_select_lib)]
+        for f in futs:
+            f.result()
+    return [build(LIBRARIES[name], name) for name in LIBRARIES]
+
+
+def check_launch(lib, err: int, what: str):
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err != 0:
+        name = lib.glome_cuda_error_name(err).decode()
+        raise RuntimeError(f"{what} launch failed: cudaError {err} ({name})")
+
+
+def check_tally(tally, rays):
+    """A work tally must be a contiguous (2, N) int32 tensor beside the
+    rays (or None)."""
+    if tally is None:
+        return
+    n = rays.shape[1]
+    if (tally.dtype != torch.int32 or tuple(tally.shape) != (2, n)
+            or tally.device != rays.device or not tally.is_contiguous()):
+        raise ValueError(f"tally must be a contiguous (2, {n}) int32 "
+                         f"tensor on {rays.device}")
+
+
+def tally_ptr(tally):
+    return None if tally is None else tally.data_ptr()

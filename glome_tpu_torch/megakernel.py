@@ -16,6 +16,9 @@ any-hit variant.  This module keeps that design and its host side:
   - mega_select: the hand-written CUDA kernel (csrc/mega_select.cu) on
     CUDA tensors, its plain torch version mega_select_plain on CPU
     tensors;
+  - the entry points: K1, then one seeded launch per group too big for
+    K1's tables (plan.blocks -> block_kernel K2, plan.external ->
+    mesh_kernel K3), all kernels or all plain versions (KERNELS / PLAIN);
   - finalize: re-evaluates the winners differentiably (normals,
     object-space rays, texture/tag stacks, difference-B retexture), so
     gradients flow through torch autograd.
@@ -47,11 +50,13 @@ INF = INFINITY
 # phase); smaller ones are tested densely behind one group AABB
 DENSE_MAX = 96
 
-# plain flat-triangle groups larger than this served glome_tpu's
-# separate VMEM-streamed kernels (K2 block_kernel / K3 mesh_kernel);
-# the plan keeps that routing so the tables stay identical, and the
-# entry points raise NotImplementedError for such groups until K2/K3
-# are ported
+# groups too big for the megakernel's tables run as separate seeded
+# launches, routed as glome_tpu routes them: a plain, untransformed,
+# unconstrained triangle group above MEGA_EXT_MIN prims goes to K3
+# (mesh_kernel) when its select table exceeds BLOCK_VMEM_MAX (a TPU VMEM
+# budget, kept so both packages route alike), and any other non-plane
+# group above BLOCK_MIN with at most BLOCK_CONS_MAX constraint rows to K2
+# (block_kernel)
 MEGA_EXT_MIN = 16384
 BLOCK_VMEM_MAX = 8 * 2**20
 BLOCK_MIN = MEGA_EXT_MIN
@@ -895,17 +900,6 @@ class PlanTables:
     phases: torch.Tensor
 
 
-def _check_plan_supported(plan: MegaPlan):
-    if plan.blocks:
-        raise NotImplementedError(
-            f"groups {plan.blocks} need K2 (glome_tpu "
-            "block_kernel.block_select), which is not ported yet")
-    if plan.external:
-        raise NotImplementedError(
-            f"groups {plan.external} need K3 (glome_tpu "
-            "mesh_kernel.mesh_block_select), which is not ported yet")
-
-
 def _static_tables(plan: MegaPlan, device):
     """Device copies of the plan's static PI/NF/NI/descriptor tables,
     cached on the plan per device."""
@@ -934,7 +928,6 @@ def pack_tables(plan: MegaPlan, compiled, arrays) -> PlanTables:
     to_torch).  The kernel only selects (winners are re-evaluated
     differentiably by finalize), so the tables are detached."""
     from .compile import group_device_params
-    _check_plan_supported(plan)
     lights = arrays["lights"]["pos"]
     device = lights.device
     parts = []
@@ -999,7 +992,8 @@ def _check_launch(tables: PlanTables, rays):
                          f"stack bound {STACK_MAX}")
 
 
-def mega_select(tables: PlanTables, rays, shadow: bool = False):
+def mega_select(tables: PlanTables, rays, shadow: bool = False,
+                tally=None):
     """Single-launch nearest-valid-candidate selection (K1).
 
     rays: (8, N) float32 component planes [ox,oy,oz,dx,dy,dz,seed,sid]
@@ -1011,13 +1005,17 @@ def mega_select(tables: PlanTables, rays, shadow: bool = False):
     variant (only wid >= 0 is meaningful).
 
     A CUDA tensor launches csrc/mega_select.cu on the current stream; a
-    CPU tensor runs mega_select_plain."""
-    if rays.device.type == "cpu":
+    CPU tensor runs mega_select_plain.  `tally`, a (2, N) int32 CUDA
+    tensor, receives each ray's box tests and prim tests (a measurement
+    of the work the rays' walks need); only such a launch runs the
+    kernel's counting build."""
+    if rays.device.type == "cpu" and tally is None:
         return mega_select_plain(tables, rays, shadow)
     if rays.device.type != "cuda":
         raise ValueError(f"mega_select: unsupported device {rays.device}")
     from . import kernels
     _check_launch(tables, rays)
+    kernels.check_tally(tally, rays)
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     wid = torch.empty(n, dtype=torch.int32, device=rays.device)
@@ -1033,10 +1031,8 @@ def mega_select(tables: PlanTables, rays, shadow: bool = False):
             tables.bb.data_ptr(), tables.phases.data_ptr(),
             len(tables.plan.phases), int(bool(shadow)),
             t.data_ptr(), wid.data_ptr(), aux.data_ptr(),
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"mega_select launch failed: cudaError {err} "
-                           f"({kernels.cuda_error_name(err)})")
+            kernels.tally_ptr(tally), ctypes.c_void_p(stream))
+    kernels.check_launch(lib, err, "mega_select")
     mega_select.launches += 1
     return t, wid, aux
 
@@ -1528,6 +1524,28 @@ def finalize(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux=None,
 
 # --- entry points ----------------------------------------------------------
 
+# the kernel switch of every entry point: all three select kernels (K1
+# mega_select, K2 block_select, K3 mesh_block_select) or all three plain
+# versions, never a mix.  KERNELS launches the CUDA kernels on CUDA
+# tensors (each wrapper takes its plain version on CPU tensors); PLAIN
+# runs the plain versions on any device.
+KERNELS = "kernels"
+PLAIN = "plain"
+
+
+def kernel_set(select: str):
+    """(K1, K2, K3) select functions of the named set."""
+    from . import block_kernel as BK
+    from . import mesh_kernel as MSH
+    if select == KERNELS:
+        return mega_select, BK.block_select, MSH.mesh_block_select
+    if select == PLAIN:
+        return (mega_select_plain, BK.block_select_plain,
+                MSH.mesh_block_select_plain)
+    raise ValueError(f"select must be {KERNELS!r} or {PLAIN!r}, "
+                     f"got {select!r}")
+
+
 def _ray_table(o, d, seed, sid):
     """(8, N) float32 plane table [o, d, seed, sid], detached."""
     return torch.cat([o.detach().t(), d.detach().t(),
@@ -1535,12 +1553,75 @@ def _ray_table(o, d, seed, sid):
                      dim=0).to(torch.float32).contiguous()
 
 
+def _big_groups(compiled, groups, shadow):
+    """(si, gi) of the routed groups a pass must run: a group whose
+    prims all skip this pass (noshadow in shadow mode, onlyshadow
+    otherwise) is left out."""
+    for si, gi in groups:
+        g = compiled.scenes[si].groups[gi]
+        if not bool((g.noshadow if shadow else g.onlyshadow).all()):
+            yield si, gi
+
+
+def _group_seed(rays, si, t, wid, shadow):
+    """A routed group's seed: the best t so far for rays of its scene, 0
+    (dead) for the others and, in shadow mode, for rays already
+    blocked."""
+    seed = torch.where(rays[7] == float(si), t, torch.zeros_like(t))
+    if shadow:
+        seed = torch.where(wid >= 0, torch.zeros_like(seed), seed)
+    return seed
+
+
+def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select):
+    """Merge the block-dense groups (plan.blocks): each is one K2 launch
+    seeded with the best t so far, so the chain keeps cross-group
+    culling."""
+    from .block_kernel import block_pass
+    for si, gi in _big_groups(compiled, plan.blocks, shadow):
+        seed = _group_seed(rays, si, t, wid, shadow)
+        t2, l2 = block_pass(compiled.scenes[si], arrays["scenes"][si], gi,
+                            rays, seed, shadow, select)
+        better = (t2 < seed) & (l2 >= 0)
+        base = plan.prim_base[(si, gi)][0]
+        wid = torch.where(better, base * 2 + torch.clamp(l2, min=0), wid)
+        t = torch.where(better, t2, t)
+    return t, wid
+
+
+def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select):
+    """Merge the giant flat-triangle groups (plan.external): each is one
+    K3 launch seeded with the best t so far."""
+    from .mesh_kernel import mesh_block_pass
+    for si, gi in _big_groups(compiled, plan.external, shadow):
+        seed = _group_seed(rays, si, t, wid, shadow)
+        t2, l2 = mesh_block_pass(compiled.scenes[si], arrays["scenes"][si],
+                                 gi, rays, seed, shadow, select)
+        better = t2 < seed
+        base = plan.prim_base[(si, gi)][0]
+        # flat prims: the exit slot is always a miss, so slot bit = 0
+        wid = torch.where(better, (base + torch.clamp(l2, min=0)) * 2, wid)
+        t = torch.where(better, t2, t)
+    return t, wid
+
+
+def _select_all(compiled, plan, arrays, rays, shadow, select):
+    """K1, then the K2 groups, then the K3 groups, each launch seeded by
+    the best t so far: (t, wid, aux)."""
+    mega, block, mesh = kernel_set(select)
+    tables = pack_tables(plan, compiled, arrays)
+    t, wid, aux = mega(tables, rays, shadow)
+    t, wid = _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, block)
+    t, wid = _run_external(compiled, plan, arrays, rays, t, wid, shadow, mesh)
+    return t, wid, aux
+
+
 def mega_intersect(compiled, arrays, o, d, sid=None, tmax=None,
                    shadow: bool = False, scene_id: int = 0,
-                   select=mega_select):
-    """Full Hit via K1 + differentiable finalize; o, d (N, 3).
-    sid=None traces every ray in `scene_id`; otherwise sid is (N,) int
-    per-ray scene ids (-1 = always miss)."""
+                   select: str = KERNELS):
+    """Full Hit via the select kernels + differentiable finalize; o, d
+    (N, 3).  sid=None traces every ray in `scene_id`; otherwise sid is
+    (N,) int per-ray scene ids (-1 = always miss)."""
     plan = get_plan(compiled)
     N = o.shape[0]
     if tmax is None:
@@ -1548,14 +1629,14 @@ def mega_intersect(compiled, arrays, o, d, sid=None, tmax=None,
     seed = torch.clamp(tmax, max=INFINITY)
     if sid is None:
         sid = torch.full((N,), scene_id, dtype=torch.int32, device=o.device)
-    tables = pack_tables(plan, compiled, arrays)
-    t, wid, aux = select(tables, _ray_table(o, d, seed, sid), shadow)
+    t, wid, aux = _select_all(compiled, plan, arrays,
+                              _ray_table(o, d, seed, sid), shadow, select)
     return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux,
                     want_meta=not shadow)
 
 
 def mega_shadow(compiled, arrays, o, d, sid=None, tmax=None,
-                scene_id: int = 0, select=mega_select):
+                scene_id: int = 0, select: str = KERNELS):
     """Any-hit occlusion query, select only: (N,) bool blocked."""
     plan = get_plan(compiled)
     N = o.shape[0]
@@ -1563,30 +1644,29 @@ def mega_shadow(compiled, arrays, o, d, sid=None, tmax=None,
         tmax = torch.full((N,), INFINITY, dtype=o.dtype, device=o.device)
     if sid is None:
         sid = torch.full((N,), scene_id, dtype=torch.int32, device=o.device)
-    tables = pack_tables(plan, compiled, arrays)
-    _t, wid, _a = select(tables, _ray_table(o, d, tmax, sid), True)
+    _t, wid, _a = _select_all(compiled, plan, arrays,
+                              _ray_table(o, d, tmax, sid), True, select)
     return wid >= 0
 
 
-def mega_intersect_table(compiled, arrays, table, select=mega_select):
+def mega_intersect_table(compiled, arrays, table, select: str = KERNELS):
     """Table-native nearest hit: `table` is (8, N) float32 component
     planes [ox,oy,oz,dx,dy,dz,tmax,sid] (dead lanes tmax 0, sid -1).
     Returns the finalized Hit; o, d for finalize are the table's rows."""
     plan = get_plan(compiled)
-    tables = pack_tables(plan, compiled, arrays)
     rays = table.detach().clone()
     rays[6] = torch.clamp(rays[6], max=INFINITY)
-    t, wid, aux = select(tables, rays, False)
+    t, wid, aux = _select_all(compiled, plan, arrays, rays, False, select)
     o = table[0:3].t()
     d = table[3:6].t()
     return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux)
 
 
-def mega_shadow_table(compiled, arrays, table, select=mega_select):
+def mega_shadow_table(compiled, arrays, table, select: str = KERNELS):
     """Table-native any-hit occlusion: `table` as in
     mega_intersect_table (row 6 = segment tmax; 0 = dead lane).
     Returns (N,) bool blocked."""
     plan = get_plan(compiled)
-    tables = pack_tables(plan, compiled, arrays)
-    _t, wid, _a = select(tables, table.detach().contiguous(), True)
+    _t, wid, _a = _select_all(compiled, plan, arrays,
+                              table.detach().contiguous(), True, select)
     return wid >= 0

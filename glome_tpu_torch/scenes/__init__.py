@@ -1,1 +1,2 @@
 from .testscene import test_scene, simple_scene
+from .meshscene import mesh_scene

@@ -145,3 +145,41 @@ def csg_rays(n, seed=0):
     d = at - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     return o, d
+
+
+def block_scene(kind, P=None):
+    """Groups for the block kernel (K2) beyond meshes, built with package
+    P: "spheres" is glome_tpu's tests/test_block.py scene (700 spheres);
+    "difference" subtracts a sphere from it, which leaves the spheres
+    overlapping that sphere as a group with an inline "not inside"
+    constraint; "transformed" is 300 boxes under random rotations (a
+    group with per-prim inverse matrices)."""
+    P = _package(P)
+    if kind == "transformed":
+        rng = np.random.default_rng(8)
+        objs = []
+        for _ in range(300):
+            axis = rng.normal(size=3)
+            axis /= np.linalg.norm(axis)
+            box = P.box((-0.3, -0.2, -0.1), (0.3, 0.2, 0.1))
+            objs.append(P.transform(box, [
+                P.rotate(axis, float(rng.uniform(0, np.pi))),
+                P.translate(tuple(rng.uniform(-4, 4, 3)))]))
+        return P.group(objs)
+    rng = np.random.default_rng(3)
+    solid = P.group([P.sphere(tuple(rng.uniform(-4, 4, 3)), 0.3)
+                     for _ in range(700)])
+    if kind == "difference":
+        solid = P.difference(solid, P.sphere((0.0, 0.0, 0.0), 2.0))
+    return solid
+
+
+def block_rays(n, seed=0, span=6.0):
+    """(o, d) float32 (n, 3) rays from a cube of half-width `span`
+    toward the middle of block_scene (or of a mesh_scene)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-span, span, (n, 3)).astype(np.float32)
+    at = rng.uniform(-1.5, 1.5, (n, 3)).astype(np.float32)
+    d = at - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d

@@ -86,13 +86,14 @@ def shadow_rays(hit, sid, lights, lpos, lrad):
 class WavefrontTracer(Tracer):
     """Per-level-queue tracer for the root scene with default lights.
 
-    `select` is the K1 entry every intersect and shadow batch goes
-    through: megakernel.mega_select (the CUDA kernel on CUDA tensors,
-    its plain version on CPU tensors), or megakernel.mega_select_plain
-    to run the plain version on any device."""
+    `select` names the kernel set every intersect and shadow batch goes
+    through: megakernel.KERNELS (the CUDA kernels K1-K3 on CUDA tensors,
+    their plain versions on CPU tensors), or megakernel.PLAIN to run
+    the plain versions on any device."""
 
     def __init__(self, compiled: CompiledScene, config: RenderConfig = None,
-                 select=MK.mega_select):
+                 select: str = MK.KERNELS):
+        MK.kernel_set(select)                 # rejects an unknown name
         super().__init__(compiled, config)
         for w in compiled.warp_mats:
             if tuple(w.lights) != tuple(compiled.lights):

@@ -1,5 +1,5 @@
-"""K1 on the card: the CUDA kernel against its plain version, and the
-wrapper's contract.  Every test needs a CUDA device and skips without
+"""K1, K2 and K3 on the card: each CUDA kernel against its plain
+version, and the wrappers' contracts.  Every test needs a CUDA device and skips without
 one.  The card's machine has no JAX, so run these without the suite's
 conftest (which configures JAX):
 
@@ -90,3 +90,112 @@ def test_wrapper_rejects_bad_inputs(dev, tables):
                         tables.ni, tables.bb, tables.phases)
     with pytest.raises(ValueError):
         MK.mega_select(cpu, rays, False)
+
+
+# --- K2 and K3 ---------------------------------------------------------------
+
+def _group_case(dev, case):
+    """(scene, group index, device arrays) of a K2/K3 check group: the
+    20k-triangle mesh of mesh_scene (a K2 group by size) or a
+    block_scene group."""
+    from glome_tpu_torch.scenes import mesh_scene
+    from glome_tpu_torch.scenes.phasescene import block_scene
+    if case == "mesh":
+        solid, lights, _cam = mesh_scene(20_000, cast_shadows=True)
+    else:
+        solid, lights = block_scene(case), phase_kinds_lights()
+    compiled = T.compile_scene(solid, lights)
+    sc = compiled.scenes[0]
+    gi = max((i for i, g in enumerate(sc.groups) if g.ptype != "plane"
+              and bool(g.constraints) == (case == "difference")),
+             key=lambda i: sc.groups[i].size)
+    return sc, gi, T.to_torch(compiled.arrays(), dev)["scenes"][0]
+
+
+def _block_rays(dev, n, seed_t, seed, span):
+    from glome_tpu_torch.scenes.phasescene import block_rays
+    o, d = block_rays(n, seed, span)
+    seeds = np.full(n, seed_t, np.float32)
+    seeds[::17] = 0.0                         # dead lanes
+    rays = torch.as_tensor(np.stack(
+        [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], seeds,
+         np.zeros(n, np.float32)]), device=dev).contiguous()
+    return rays, rays[6].contiguous()
+
+
+def _assert_kernel_equals_plain(k, p, shadow):
+    """Built without multiply-add contraction, the kernels round each
+    candidate as the plain versions do: blocked/hit agree on every
+    lane, and an intersect winner differs only where both t are equal
+    (a tie the walk order breaks another way)."""
+    (tk, sk), (tp, sp) = k, p
+    torch.cuda.synchronize()
+    assert torch.equal(sk >= 0, sp >= 0)
+    assert 0 < int((sk >= 0).sum()) < sk.numel()
+    if not shadow:
+        assert torch.equal(tk, tp)
+        diff = sk != sp
+        assert torch.equal(tk[diff], tp[diff])
+
+
+@pytest.mark.parametrize("case", ["mesh", "spheres", "difference",
+                                  "transformed"])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_block_kernel_matches_plain(dev, case, shadow):
+    from glome_tpu_torch import block_kernel as BK
+    from glome_tpu_torch.compile import group_device_params
+    sc, gi, garrs = _group_case(dev, case)
+    g = sc.groups[gi]
+    plan = BK.get_block_plan(g, sc)
+    tab = BK.pack_blocks(plan, group_device_params(g, garrs[gi]))
+    cf = BK.pack_cons(plan, sc, garrs, dev)
+    rays, seed = _block_rays(dev, 8192, 7.0 if shadow else T.INFINITY,
+                             5 if shadow else 4,
+                             3.0 if case == "mesh" else 6.0)
+    before = BK.block_select.launches
+    k = BK.block_select(plan, tab, cf, rays, seed, shadow)
+    p = BK.block_select_plain(plan, tab, cf, rays, seed, shadow)
+    assert BK.block_select.launches == before + 1
+    _assert_kernel_equals_plain(k, p, shadow)
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+def test_mesh_kernel_matches_plain(dev, shadow):
+    from glome_tpu_torch import mesh_kernel as MSH
+    from glome_tpu_torch.compile import group_device_params
+    sc, gi, garrs = _group_case(dev, "mesh")
+    g = sc.groups[gi]
+    plan = MSH.get_block_plan(g)
+    tri = MSH.pack_tri_blocks(plan, group_device_params(g, garrs[gi]))
+    rays, seed = _block_rays(dev, 8192, 3.0 if shadow else T.INFINITY,
+                             7 if shadow else 6, 3.0)
+    before = MSH.mesh_block_select.launches
+    k = MSH.mesh_block_select(plan, tri, rays, seed, shadow)
+    p = MSH.mesh_block_select_plain(plan, tri, rays, seed, shadow)
+    assert MSH.mesh_block_select.launches == before + 1
+    _assert_kernel_equals_plain(k, p, shadow)
+
+
+def test_block_wrappers_reject_bad_inputs(dev):
+    from glome_tpu_torch import block_kernel as BK
+    from glome_tpu_torch import mesh_kernel as MSH
+    from glome_tpu_torch.compile import group_device_params
+    sc, gi, garrs = _group_case(dev, "mesh")
+    g = sc.groups[gi]
+    ga = group_device_params(g, garrs[gi])
+    rays, seed = _block_rays(dev, 256, T.INFINITY, 0, 3.0)
+    plan = BK.get_block_plan(g, sc)
+    tab = BK.pack_blocks(plan, ga)
+    cf = BK.pack_cons(plan, sc, garrs, dev)
+    with pytest.raises(ValueError):
+        BK.block_select(plan, tab.cpu(), cf, rays, seed)
+    with pytest.raises(ValueError):
+        BK.block_select(plan, tab, cf, rays, seed[:-1].contiguous())
+    with pytest.raises(TypeError):
+        BK.block_select(plan, tab.double(), cf, rays, seed)
+    mplan = MSH.get_block_plan(g)
+    tri = MSH.pack_tri_blocks(mplan, ga)
+    with pytest.raises(ValueError):
+        MSH.mesh_block_select(mplan, tri[:-1], rays, seed)
+    with pytest.raises(ValueError):
+        MSH.mesh_block_select(mplan, tri.t().contiguous().t(), rays, seed)
