@@ -1,21 +1,22 @@
 #!/usr/bin/env python3
 """Smoke test of glome_tpu_torch on one CUDA GPU.
 
-Drives the port's two main paths through the entry points a user calls
+Drives the port's main paths through the entry points a user calls
 (compile_scene -> to_torch -> WavefrontTracer -> Renderer.render) with
 the hand-written CUDA kernels K1 (csrc/mega_select.cu), K2
-(csrc/block_select.cu) and K3 (csrc/mesh_block_select.cu), and checks
-them in phases:
+(csrc/block_select.cu) and K3 (csrc/mesh_block_select.cu) on the
+megakernel route, and K4 (csrc/dense_select.cu) and K5
+(csrc/bvh_select.cu) on the pass-per-group route
+(WavefrontTracer(route=intersect.GROUPS)), and checks them in phases:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: K1, K2 and K3 from the sources in this checkout, one nvcc
-     each, all started together (build seconds, ptxas register and
-     spill counts);
+  2. build: K1-K5 from the sources in this checkout, one nvcc each, all
+     started together (build seconds, ptxas register and spill counts);
   3. K1 against mega_select_plain on the card, on the all-phase-kinds
      scene, the CSG scene and TestScene's 345,600 primary rays (L0),
      intersect and shadow;
   4. TestScene frame: 720x480, depth 3, through the kernels: 6 K1
-     launches, no K2/K3 launch, no plain call, zero overflow, and within
+     launches, no K2-K5 launch, no plain call, zero overflow, and within
      the drift canaries of out/testscene_tpu.png;
   5. TestScene plain-path frame: 180x120 through the plain set
      (megakernel.PLAIN) on the card, against the kernel frame and
@@ -48,7 +49,27 @@ them in phases:
      once) over 3.35 TB/s and the float32 work of the box and prim tests
      its rays actually made (counted by a tallying build of the kernel)
      over 67 TFLOP/s; and the tallies of each mesh through the other
-     kernel.
+     kernel;
+ 12. K4 against dense_select_plain on the card: K4 launched on every
+     dense group of TestScene with all 345,600 L0 rays and all their
+     shadow rays, held against the plain version on the whole batch; and
+     on every dense group of the all-phase-kinds and CSG scenes and of
+     block_scene's difference and rotated-box scenes (65,536 rays);
+ 13. K5 against bvh_select_plain likewise, on TestScene's two lattice
+     groups (one with an inline constraint) and on a 20,000-sphere group;
+ 14. TestScene frame 720x480 depth 3 on the group route through K4/K5:
+     per intersect or shadow batch one K4 launch per dense group and one
+     K5 launch per BVH group of the compiled scene (7 and 2), no K1-K3
+     launch, no plain call, zero overflow, and within the canaries of
+     out/testscene_tpu.png and of phase 4's megakernel-route frame;
+ 15. TestScene 180x120 on the group route through the plain set
+     (megakernel.PLAIN) on the card, against
+     tests/golden/testscene_180x120_cpu.png (glome_tpu's CPU group
+     route made it);
+ 16. group-route timing with CUDA events and the SM clock sampled: the
+     720x480 frame, one K4 launch on the cone group's L0 batch and one K5
+     launch on the 2,816-sphere group's, each against one plain launch,
+     and one profiled frame (device busy share, K4's and K5's shares).
 
 Kernel against plain: hit/blocked agree on >= 99.9% of lanes, t within
 rtol 5e-5 / atol 1e-4 on >= 99.9% of the agreeing lanes, and the winner
@@ -148,10 +169,12 @@ def main():
 
     import glome_tpu_torch as T
     from glome_tpu_torch import block_kernel as BK
+    from glome_tpu_torch import group_kernels as GK
+    from glome_tpu_torch import intersect as TI
     from glome_tpu_torch import kernels
     from glome_tpu_torch import megakernel as MK
     from glome_tpu_torch import mesh_kernel as MSH
-    from glome_tpu_torch.compile import group_device_params
+    from glome_tpu_torch.compile import group_accel, group_device_params
     from glome_tpu_torch.io import quantize, read_png, write_png
     from glome_tpu_torch.render import pixel_coords, primary_rays, tile_order
     from glome_tpu_torch.scenes import mesh_scene, test_scene
@@ -175,15 +198,24 @@ def main():
         "mesh_block_select": {
             "name": "mesh_block_select", "route": "cuda",
             "source": "glome_tpu_torch/csrc/mesh_block_select.cu",
-            "replaces": "glome_tpu/mesh_kernel.py:105"}}
+            "replaces": "glome_tpu/mesh_kernel.py:105"},
+        "dense_select": {"name": "dense_select", "route": "cuda",
+                         "source": "glome_tpu_torch/csrc/dense_select.cu",
+                         "replaces": "glome_tpu/pallas_kernels.py:363"},
+        "bvh_select": {"name": "bvh_select", "route": "cuda",
+                       "source": "glome_tpu_torch/csrc/bvh_select.cu",
+                       "replaces": "glome_tpu/pallas_kernels.py:558"}}
     for e in entries.values():
         e["library_ms"] = None        # no single PyTorch call computes it
         e["launches_by_path"] = {}
     kernel_fns = {"mega_select": MK.mega_select,
                   "block_select": BK.block_select,
-                  "mesh_block_select": MSH.mesh_block_select}
+                  "mesh_block_select": MSH.mesh_block_select,
+                  "dense_select": GK.dense_select,
+                  "bvh_select": GK.bvh_select}
     plain_fns = (MK.mega_select_plain, BK.block_select_plain,
-                 MSH.mesh_block_select_plain)
+                 MSH.mesh_block_select_plain, GK.dense_select_plain,
+                 GK.bvh_select_plain)
 
     def phase(title, fn):
         print(f"== {title}", flush=True)
@@ -215,6 +247,7 @@ def main():
         counts["plain"] = sum(fn.calls for fn in plain_fns)
         print(f"  launches: K1 {counts['mega_select']}, K2 "
               f"{counts['block_select']}, K3 {counts['mesh_block_select']}, "
+              f"K4 {counts['dense_select']}, K5 {counts['bvh_select']}, "
               f"plain calls {counts['plain']}")
         return counts
 
@@ -280,8 +313,8 @@ def main():
     def p_build():
         t0 = time.perf_counter()
         paths = kernels.load_all()
-        print(f"  three nvcc runs in parallel: {time.perf_counter() - t0:.2f}"
-              f" s wall")
+        print(f"  {len(paths)} nvcc runs in parallel: "
+              f"{time.perf_counter() - t0:.2f} s wall")
         for path in paths:
             info = kernels.BUILD_INFO[path]
             print(f"  {os.path.relpath(path, ROOT)}: nvcc "
@@ -355,6 +388,8 @@ def main():
     out_dir = os.path.join(ROOT, "build")
     os.makedirs(out_dir, exist_ok=True)
 
+    frame_imgs = {}
+
     def p_frame():
         renderer = T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg)
         reset_counts()
@@ -367,13 +402,14 @@ def main():
         print(f"  rgb {tuple(img.shape)} finite {finite}, overflow {ov} "
               f"(expected K1 launches {2 * cfg.maxdepth})")
         write_png(os.path.join(out_dir, "testscene_720x480_gpu.png"), img)
+        frame_imgs["mega"] = quantize(img)
         ok = canaries_ok("vs out/testscene_tpu.png", quantize(img),
                          read_png(os.path.join(ROOT, "out",
                                                "testscene_tpu.png")))
         return (ok and finite and img.shape == (cfg.yres, cfg.xres, 3)
                 and counts["mega_select"] == 2 * cfg.maxdepth
-                and counts["block_select"] == 0
-                and counts["mesh_block_select"] == 0
+                and all(counts[k] == 0 for k in kernel_fns
+                        if k != "mega_select")
                 and counts["plain"] == 0 and ov == 0)
     phase("4 TestScene frame 720x480 depth 3 through the kernels", p_frame)
 
@@ -596,7 +632,7 @@ def main():
                          quantize(rp.cpu().numpy()))
         return (ok and finite and ov == 0 and counts["plain"] == 0
                 and img.shape == (MESH_RES[1], MESH_RES[0], 3)
-                and all(counts[k] == v for k, v in want.items())
+                and all(counts[k] == want.get(k, 0) for k in kernel_fns)
                 and pcounts["plain"] > 0
                 and sum(pcounts[k] for k in kernel_fns) == 0
                 and int(rplain.last_overflow.sum()) == 0)
@@ -622,9 +658,11 @@ def main():
     frames = {}
     device_share = {}
 
-    def profile_frame(render):
-        """(host wall ms, device busy ms, K2 kernel ms) of one
-        frame under torch.profiler (None where it saw no device time)."""
+    def profile_frame(render, names=("block_select_kernel",), top=None):
+        """(host wall ms, device busy ms, {kernel name: ms}) of one frame
+        under torch.profiler for the named kernels (None where it saw no
+        device time); with `top`, also prints the device kernels that
+        took the most time."""
         from torch.profiler import ProfilerActivity, profile
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -633,7 +671,7 @@ def main():
             render()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-        spans, k2 = [], 0.0
+        spans, per, by_name = [], dict.fromkeys(names, 0.0), {}
         for ev in prof.events():
             if getattr(ev, "device_type", None) != \
                     torch.autograd.DeviceType.CUDA:
@@ -641,9 +679,14 @@ def main():
             a, b = ev.time_range.start, ev.time_range.end
             spans.append((a, b))
             # "void block_select_kernel<false>(float const*, ...)"
-            if ev.name.split("<")[0].split("(")[0].split()[-1] == \
-                    "block_select_kernel":
-                k2 += (b - a) / 1e3
+            base = ev.name.split("<")[0].split("(")[0].split()[-1]
+            if base in per:
+                per[base] += (b - a) / 1e3
+            tot, cnt = by_name.get(ev.name[:90], (0.0, 0))
+            by_name[ev.name[:90]] = (tot + (b - a) / 1e3, cnt + 1)
+        for nm, (ms, cnt) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:top or 0]:
+            print(f"    {ms:9.3f} ms in {cnt:6d} launches: {nm}")
         if not spans:
             return wall, None, None
         spans.sort()
@@ -655,7 +698,7 @@ def main():
             else:
                 cur_b = max(cur_b, b)
         busy += cur_b - cur_a
-        return wall, busy / 1e3, k2
+        return wall, busy / 1e3, per
 
     def clocks():
         """The card's SM clock, its maximum, power draw and temperature
@@ -682,11 +725,13 @@ def main():
                   f"mean of 3 after warm-up), {n_rays / ms / 1e3:.4f} "
                   f"primary Mrays/s")
             if cast_shadows:
-                wall, busy, k2 = profile_frame(lambda: renderer.render(garrs))
+                wall, busy, per = profile_frame(
+                    lambda: renderer.render(garrs))
                 if busy is None:
                     print("  profiler: no device time (device busy share "
                           "not measured)")
                 else:
+                    k2 = per["block_select_kernel"]
                     device_share.update(wall=wall, busy=busy, k2=k2)
                     print(f"  [{smi_line}] one profiled frame: host wall "
                           f"{wall:.3f} ms, device busy {busy:.3f} ms "
@@ -732,6 +777,56 @@ def main():
         return True
     phase("10 mesh timing", p_mesh_timing)
 
+    # -- TestScene's groups on the pass-per-group route -------------------
+    def route_groups(cc):
+        """[(si, gi, "dense" | "bvh")] of every group of cc the group
+        route sends to K4 or K5, in route order."""
+        return [(si, gi, "bvh" if g.accel_eligible else "dense")
+                for si, sc in enumerate(cc.scenes)
+                for gi, g in enumerate(sc.groups)
+                if g.vclass not in ("deferred", "convex") and g.size]
+
+    def group_args(cc, garrs, si, gi, kind, shadow):
+        """(select function, plain version, positional inputs, keywords)
+        of one group's K4 or K5 launch, packed as the group route packs
+        them (`garrs` the to_torch arrays of cc)."""
+        sc = cc.scenes[si]
+        ga = garrs["scenes"][si]
+        if kind == "dense":
+            args, bbox = TI.dense_args(sc, ga, gi, shadow, dev)
+            return (GK.dense_select, GK.dense_select_plain, args,
+                    {"block_bbox": bbox})
+        args, _order = TI.bvh_args(sc, ga, gi, shadow, dev)
+        return GK.bvh_select, GK.bvh_select_plain, args, {}
+
+    def group_label(cc, si, gi):
+        g = cc.scenes[si].groups[gi]
+        return (f"{si}.g{gi} ({g.size} {g.ptype}"
+                f"{', transformed' if g.m_inv is not None else ''}"
+                f"{', constrained' if g.constraints else ''})")
+
+    l0_shadow_cache = []
+
+    def l0_shadow():
+        """The shadow rays of TestScene's L0 hits (megakernel route), as
+        the tracer's first shadow batch."""
+        if not l0_shadow_cache:
+            hit = MK.mega_intersect_table(compiled, arrays, Q0)
+            lpos, _lcol, lrad = _light_arrays(compiled, arrays,
+                                              compiled.lights)
+            _pre, _segs, sh = shadow_rays(hit, Q0[7], compiled.lights, lpos,
+                                          lrad)
+            l0_shadow_cache.append(sh.contiguous())
+        return l0_shadow_cache[0]
+
+    groups_ts = route_groups(compiled)
+    cone_gi = next(gi for si, gi, _k in groups_ts
+                   if si == 0
+                   and compiled.scenes[0].groups[gi].ptype == "cone")
+    big_bvh_gi = max((gi for si, gi, kind in groups_ts
+                      if si == 0 and kind == "bvh"),
+                     key=lambda gi: compiled.scenes[0].groups[gi].size)
+
     # -- 11. bounds ----------------------------------------------------------
     def bound(name, rays_bytes, out_bytes, table_bytes, tally, prim_flops):
         n_box = int(tally[0].sum())
@@ -749,7 +844,8 @@ def main():
               f"({n_prim / n:.2f}/ray); {nbytes / 1e6:.3f} MB -> "
               f"{1e3 * t_bytes:.2f} us, {flops / 1e9:.3f} GFLOP -> "
               f"{1e3 * t_ops:.2f} us; bound {1e3 * e['bound_ms']:.2f} us "
-              f"({e['bound_by']}), measured {1e3 * e.get('ms', 0):.2f} us")
+              f"({e['bound_by']})"
+              + (f", measured {1e3 * e['ms']:.2f} us" if "ms" in e else ""))
 
     def p_bounds():
         def tally_for(n):
@@ -790,8 +886,266 @@ def main():
             per_ray = (tally.sum(dim=1) / Q.shape[1]).tolist()
             print(f"  {label}: {per_ray[0]:.2f} box + {per_ray[1]:.2f} "
                   f"triangle tests per ray")
+        # K4 on the cone group's L0 batch, K5 on the biggest lattice
+        # group's, each as the route launches it
+        for name, gi, kind in (("dense_select", cone_gi, "dense"),
+                               ("bvh_select", big_bvh_gi, "bvh")):
+            fn, _plain, args, kw = group_args(compiled, arrays, 0, gi, kind,
+                                              False)
+            n = Q0.shape[1]
+            tally = tally_for(n)
+            fn(*args, Q0, Q0[6].contiguous(), tally=tally, **kw)
+            tabs = [a for a in list(args) + list(kw.values())
+                    if torch.is_tensor(a)] + [args[-1].cf, args[-1].desc]
+            if kind == "bvh":
+                tabs += list(GK._bvh_tables(args[1], dev))
+            # o, d and the seed in; t and the winner out
+            bound(name, 28 * n, 8 * n,
+                  sum(t.numel() * t.element_size() for t in tabs),
+                  tally.cpu(), MIN_PRIM_FLOPS)
         return True
     phase("11 bounds", p_bounds)
+
+    # -- 12. K4 against the plain version -----------------------------------
+    def check_group(label, fn, plain, args, kw, rays, seed, shadow):
+        k = fn(*args, rays, seed, shadow=shadow, **kw)
+        p = plain(*args, rays, seed, shadow=shadow, **kw)
+        torch.cuda.synchronize()
+        return compare(label, as_np(k), as_np(p), shadow)
+
+    def check_scene_groups(cc, make_rays, sh_t, kinds):
+        """Every K4/K5 group of cc (of the given kinds) on SUBSET of the
+        scene's own rays, intersect and shadow."""
+        ok = True
+        garrs = T.to_torch(cc.arrays(), dev)
+        o, d = make_rays(SUBSET, seed=4)
+        for shadow, seed_t in ((False, T.INFINITY), (True, sh_t)):
+            rays = torch.as_tensor(np.stack(
+                [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                 np.full(SUBSET, seed_t, np.float32),
+                 np.zeros(SUBSET, np.float32)]), device=dev).contiguous()
+            rays[6, ::17] = 0.0                       # dead lanes
+            for si, gi, kind in route_groups(cc):
+                if kind not in kinds:
+                    continue
+                fn, plain, args, kw = group_args(cc, garrs, si, gi, kind,
+                                                 shadow)
+                ok &= check_group(
+                    f"  {group_label(cc, si, gi)} "
+                    f"{'shadow' if shadow else 'intersect'}", fn, plain,
+                    args, kw, rays, rays[6].contiguous(), shadow)[0]
+        return ok
+
+    def check_testscene_groups(kind):
+        """Every TestScene group of `kind` with all L0 rays and all their
+        shadow rays; returns (ok, max |dt| on common intersect hits)."""
+        ok, errs = True, []
+        for shadow, rays in ((False, Q0), (True, l0_shadow())):
+            for si, gi, k_ in groups_ts:
+                if k_ != kind:
+                    continue
+                fn, plain, args, kw = group_args(compiled, arrays, si, gi,
+                                                 kind, shadow)
+                good, err = check_group(
+                    f"TestScene {group_label(compiled, si, gi)} L0 "
+                    f"{'shadow' if shadow else 'intersect'}", fn, plain,
+                    args, kw, rays, rays[6].contiguous(), shadow)
+                ok &= good
+                if not shadow:
+                    errs.append(err)
+        return ok, max(errs)
+
+    def p_k4():
+        ok, err = check_testscene_groups("dense")
+        entries["dense_select"]["max_abs_err"] = err
+        for name, scene, make_rays, sh_t in (
+                ("phase-kinds", phase_kinds_scene, phase_kinds_rays, 20.0),
+                ("csg", csg_scene, csg_rays, 9.0)):
+            print(f"  {name}:")
+            ok &= check_scene_groups(
+                T.compile_scene(scene(), phase_kinds_lights()), make_rays,
+                sh_t, ("dense",))
+        for kind_ in ("difference", "transformed"):
+            print(f"  block_scene({kind_!r}), every group dense:")
+            ok &= check_scene_groups(
+                T.compile_scene(block_scene(kind_), phase_kinds_lights(),
+                                accel_min_size=1 << 30),
+                lambda n, seed: block_rays(n, seed), 7.0, ("dense",))
+        return ok
+    phase("12 K4 vs plain", p_k4)
+
+    # -- 13. K5 against the plain version -----------------------------------
+    def p_k5():
+        ok, err = check_testscene_groups("bvh")
+        entries["bvh_select"]["max_abs_err"] = err
+        # a deeper tree than TestScene's: 20,000 spheres in one group
+        rng = np.random.default_rng(12)
+        big = T.compile_scene(T.group(
+            [T.sphere(tuple(rng.uniform(-10, 10, 3)),
+                      float(rng.uniform(0.05, 0.25))) for _ in range(20_000)]),
+            phase_kinds_lights())
+        t0 = time.perf_counter()
+        bvh = group_accel(big.scenes[0].groups[0])
+        lattice = [group_accel(compiled.scenes[si].groups[gi]).n_nodes
+                   for si, gi, k_ in groups_ts if k_ == "bvh"]
+        print(f"  20,000-sphere group: {bvh.n_nodes} nodes, built in "
+              f"{time.perf_counter() - t0:.2f} s (TestScene's lattice "
+              f"groups: {lattice} nodes)")
+        ok &= check_scene_groups(
+            big, lambda n, seed: block_rays(n, seed, span=14.0), 7.0,
+            ("bvh",))
+        return ok
+    phase("13 K5 vs plain", p_k5)
+
+    # -- 14. the TestScene frame on the group route --------------------------
+    n_dense = sum(k == "dense" for _s, _g, k in groups_ts)
+    n_bvh = sum(k == "bvh" for _s, _g, k in groups_ts)
+
+    def p_group_frame():
+        tracer = T.WavefrontTracer(compiled, cfg, route=TI.GROUPS)
+        renderer = T.Renderer(tracer, cam, cfg)
+        reset_counts()
+        t0 = time.perf_counter()
+        rgb, depth = renderer.render(arrays)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts("testscene_720x480_groups")
+        batches = tracer.last_batches
+        ov = int(renderer.last_overflow.sum())
+        img = rgb.cpu().numpy()
+        finite = bool(np.isfinite(img).all()
+                      and torch.isfinite(depth).all().item())
+        print(f"  rgb {tuple(img.shape)} finite {finite}, overflow {ov}, "
+              f"{batches} batches, expected K4 {n_dense} x {batches}, K5 "
+              f"{n_bvh} x {batches} (first frame, host wall {wall:.2f} s)")
+        write_png(os.path.join(out_dir, "testscene_720x480_groups_gpu.png"),
+                  img)
+        ok = canaries_ok("vs out/testscene_tpu.png", quantize(img),
+                         read_png(os.path.join(ROOT, "out",
+                                               "testscene_tpu.png")))
+        if "mega" in frame_imgs:
+            ok &= canaries_ok("vs phase 4's megakernel-route frame",
+                              quantize(img), frame_imgs["mega"])
+        else:
+            print("  no megakernel-route frame to compare (phase 4 failed)")
+            ok = False
+        return (ok and finite and ov == 0 and batches > 0
+                and img.shape == (cfg.yres, cfg.xres, 3)
+                and counts["dense_select"] == n_dense * batches
+                and counts["bvh_select"] == n_bvh * batches
+                and counts["mega_select"] == 0
+                and counts["block_select"] == 0
+                and counts["mesh_block_select"] == 0
+                and counts["plain"] == 0)
+    phase("14 TestScene frame 720x480 depth 3 on the group route",
+          p_group_frame)
+
+    # -- 15. the group route's plain path ------------------------------------
+    def p_group_plain():
+        small = T.RenderConfig.tuned(xres=180, yres=120)
+        rplain = T.Renderer(T.WavefrontTracer(compiled, small,
+                                              select=MK.PLAIN,
+                                              route=TI.GROUPS), cam, small)
+        reset_counts()
+        rp, _ = rplain.render(arrays)
+        counts = read_counts("testscene_180x120_groups_plain")
+        golden = read_png(os.path.join(ROOT, "tests", "golden",
+                                       "testscene_180x120_cpu.png"))
+        ok = canaries_ok("group-route plain vs CPU golden",
+                         quantize(rp.cpu().numpy()), golden)
+        return (ok and counts["plain"] > 0
+                and sum(counts[k] for k in kernel_fns) == 0
+                and int(rplain.last_overflow.sum()) == 0)
+    phase("15 TestScene group-route plain frame 180x120", p_group_plain)
+
+    # -- 16. group-route timing ----------------------------------------------
+    def launch_split(fn, name, reps=10):
+        """(host ms per wrapper call, device ms per recorded launch of the
+        kernel `name` under torch.profiler, launches recorded) of `reps`
+        calls of fn: CUDA events around back-to-back launches read the
+        host's issue time instead of the kernel's when the wrapper is the
+        slower of the two."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [ev.time_range.end - ev.time_range.start
+                 for ev in prof.events()
+                 if getattr(ev, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA
+                 and ev.name.split("<")[0].split("(")[0].split()[-1] == name]
+        return host, sum(spans) / 1e3 / max(len(spans), 1), len(spans)
+
+    def p_group_timing():
+        renderer = T.Renderer(T.WavefrontTracer(compiled, cfg,
+                                                route=TI.GROUPS), cam, cfg)
+        print(f"  clocks at the start: {clocks()}")
+        frame_ms = cuda_ms(lambda: renderer.render(arrays), 3)
+        print(f"  [{smi_line}] group-route 720x480 depth-3 frame: "
+              f"{frame_ms:.3f} ms (CUDA events, mean of 3 after warm-up), "
+              f"{n_px / frame_ms / 1e3:.4f} primary Mrays/s")
+        for name, gi, kind in (("dense_select", cone_gi, "dense"),
+                               ("bvh_select", big_bvh_gi, "bvh")):
+            fn, plain, args, kw = group_args(compiled, arrays, 0, gi, kind,
+                                             False)
+            seed = Q0[6].contiguous()
+            before = clocks()
+            kms = cuda_ms(lambda: fn(*args, Q0, seed, **kw), 10)
+            pms = cuda_ms(lambda: plain(*args, Q0, seed, **kw), 1)
+            host, dev_ms, rec = launch_split(
+                lambda: fn(*args, Q0, seed, **kw), f"{name}_kernel")
+            print(f"  [{smi_line}] {name} on TestScene "
+                  f"{group_label(compiled, 0, gi)} L0 ({Q0.shape[1]} rays): "
+                  f"{kms:.4f} ms/launch (CUDA events), {dev_ms:.4f} ms "
+                  f"device time per launch (profiler, {rec} of 10 launches "
+                  f"recorded), {host:.4f} ms host per wrapper call; plain "
+                  f"{pms:.4f} ms ({pms / kms:.1f}x) (clocks before: "
+                  f"{before})")
+            entries[name].update(ms=kms, plain_ms=pms, rays=Q0.shape[1],
+                                 plain_rays=Q0.shape[1], device_ms=dev_ms,
+                                 host_ms=host)
+        # the same split for K1 on TestScene L0 and K2 on the mesh100k
+        # subset (their CUDA-event times come from phases 6 and 10)
+        cc, garrs, _mp, _c, grp = mesh(100_000, True)
+        k2a = k2_inputs(cc, garrs, grp)
+        Q, t1, _sh = mesh_l0(100_000)
+        rs, ss = sub_rays(Q, t1)
+        for label, fn, kname in (
+                ("mega_select on TestScene L0",
+                 lambda: MK.mega_select(tables, Q0, False),
+                 "mega_select_kernel"),
+                (f"block_select on the mesh100k {SUBSET}-ray subset",
+                 lambda: BK.block_select(*k2a, rs, ss, False),
+                 "block_select_kernel")):
+            host, dev_ms, rec = launch_split(fn, kname)
+            print(f"  [{smi_line}] {label}: {dev_ms:.4f} ms device time per "
+                  f"launch (profiler, {rec} of 10 launches recorded), "
+                  f"{host:.4f} ms host per wrapper call")
+        wall, busy, per = profile_frame(
+            lambda: renderer.render(arrays),
+            ("dense_select_kernel", "bvh_select_kernel"), top=8)
+        if busy is None:
+            print("  profiler: no device time (device busy share not "
+                  "measured)")
+        else:
+            k4, k5 = per["dense_select_kernel"], per["bvh_select_kernel"]
+            print(f"  [{smi_line}] one profiled group-route frame: host wall "
+                  f"{wall:.3f} ms, device busy {busy:.3f} ms "
+                  f"({100 * busy / wall:.1f}%), K4 {k4:.3f} ms "
+                  f"({100 * k4 / wall:.1f}% of the frame, "
+                  f"{100 * k4 / busy:.1f}% of device busy), K5 {k5:.3f} ms "
+                  f"({100 * k5 / wall:.1f}%, {100 * k5 / busy:.1f}%)")
+        return True
+    phase("16 group-route timing", p_group_timing)
 
     if "jax" in sys.modules or "glome_tpu" in sys.modules:
         print("jax or glome_tpu was imported")
@@ -802,7 +1156,9 @@ def main():
     # each kernel's launches on the main path it serves
     for name, path in (("mega_select", "testscene_720x480_depth3"),
                        ("block_select", "mesh100k_1080p_cast1"),
-                       ("mesh_block_select", "mesh250k_1080p_cast1")):
+                       ("mesh_block_select", "mesh250k_1080p_cast1"),
+                       ("dense_select", "testscene_720x480_groups"),
+                       ("bvh_select", "testscene_720x480_groups")):
         entries[name]["launches"] = entries[name]["launches_by_path"][path]
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line)

@@ -56,7 +56,7 @@ STACK_MAX = 64
 SELECT_FIELDS = dict(FIELDS)
 SELECT_FIELDS["trianglenorm"] = FIELDS["triangle"]
 
-# constraint descriptor widths (CC_W / CMB_W in csrc/block_select.cu)
+# constraint descriptor widths (CC_W / CMB_W in csrc/cons.cuh)
 CC_W = 3     # positive, member_start, member_count
 CMB_W = 5    # ptype, cf_off, M, Fm, has_inv
 
@@ -260,12 +260,13 @@ def block_select(plan: BlockPlan, tab, cf, rays, seed, shadow: bool = False,
 block_select.launches = 0
 
 
-def _cons_ok(plan, cf, px, py, pz):
+def cons_ok(cons, cf, px, py, pz):
     """Clause validity at candidate points (Csg.hs:92-101: IN(member
-    rows) == positive for every clause), as csrc/block_select.cu
-    eval_cons evaluates it."""
+    rows) == positive for every clause), as csrc/cons.cuh eval_cons
+    evaluates it.  `cons` is the list encode_cons encodes (BlockPlan.cons),
+    `cf` the flat member rows it points into."""
     ok = torch.ones(px.shape, dtype=torch.bool, device=px.device)
-    for positive, ms in plan.cons:
+    for positive, ms in cons:
         inn = torch.zeros_like(ok)
         for ptype2, off, M, Fm, has_inv in ms:
             for r in range(M):
@@ -308,9 +309,9 @@ def block_select_plain(plan: BlockPlan, tab, cf, rays, seed,
         if plan.cons:
             for which in (0, 1):
                 tv = t0 if which == 0 else t1
-                okc = _cons_ok(plan, cf, o[:, 0:1] + d[:, 0:1] * tv,
-                               o[:, 1:2] + d[:, 1:2] * tv,
-                               o[:, 2:3] + d[:, 2:3] * tv)
+                okc = cons_ok(plan.cons, cf, o[:, 0:1] + d[:, 0:1] * tv,
+                              o[:, 1:2] + d[:, 1:2] * tv,
+                              o[:, 2:3] + d[:, 2:3] * tv)
                 if which == 0:
                     v0 = v0 & okc
                 else:

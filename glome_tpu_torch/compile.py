@@ -48,6 +48,11 @@ TAG_DEPTH = 4
 # difference-B solids and members of wide intersections).
 CHEAP_CONSTRAINTS_MAX = 24
 
+# groups of more prims than this (and not planes, deferred or convex CSG,
+# or transformed) get a skip-link BVH that the pass-per-group route
+# (intersect.GROUPS) walks; smaller ones are tested densely
+ACCEL_MIN_SIZE = 2048
+
 # primitive type tags (group order is irrelevant; kernels dispatch on this)
 PTYPES = ("sphere", "plane", "box", "triangle", "trianglenorm", "disc",
           "cylinder", "cone")
@@ -87,6 +92,9 @@ class PrimGroup:
     # materialized copy (bounds / BVH builds).  Keys: verts (V,3) f64,
     # tri (T,3) i32 [, norms (Vn,3), tri_n (T,3)].
     mesh_src: Optional[Dict[str, np.ndarray]] = None
+    # whether the group has a skip-link BVH (glome_tpu's g.accel is not
+    # None); the tree itself is built at first use by group_accel
+    accel_eligible: bool = False
 
     @property
     def size(self):
@@ -223,6 +231,22 @@ def _mesh_index(g: PrimGroup, key: str, device):
     if ck not in cache:
         cache[ck] = torch.as_tensor(g.mesh_src[key], device=device)
     return cache[ck]
+
+
+def group_accel(g: PrimGroup):
+    """The group's skip-link BVH (accel.BvhFlat over its prim bounds, the
+    tables glome_tpu's compiler attaches as g.accel), or None for a
+    group without one.  Built at the first call and cached on the group:
+    only the pass-per-group route walks it, so the megakernel route and
+    the compile of a big mesh pay nothing for it."""
+    if not g.accel_eligible:
+        return None
+    bvh = g.__dict__.get("_accel")
+    if bvh is None:
+        from . import accel as A
+        bvh = A.build_bvh(*A.group_bounds(g))
+        g._accel = bvh
+    return bvh
 
 
 def materialize_scene_params(sc: PackedScene, garrs):
@@ -990,7 +1014,8 @@ class Compiler:
             return ("inline", (rec.csg_id, own))
         return ("deferred", None)
 
-    def pack(self, lights: Sequence[Light]) -> CompiledScene:
+    def pack(self, lights: Sequence[Light],
+             accel_min_size: int = ACCEL_MIN_SIZE) -> CompiledScene:
         packed_scenes = []
         serial_loc: Dict[int, Tuple[int, int, int]] = {}
         group_builds = []
@@ -1065,11 +1090,14 @@ class Compiler:
                     excl=[pack_clauses(cs, sg) for cs, sg in cb.excl]))
             packed_scenes.append(PackedScene(glist, csgs))
 
-        # resolve inline CSG constraints now that every prim has a home
-        # (glome_tpu also attaches a skip-link BVH to every big group
-        # here; the port's plan builds the trees its kernels walk, so it
-        # builds none)
+        # resolve inline CSG constraints now that every prim has a home,
+        # and mark the groups that get a skip-link BVH (glome_tpu builds
+        # it here; the port builds it at first use, group_accel)
         for build, g, recs, vkey in group_builds:
+            g.accel_eligible = (g.ptype != "plane"
+                                and g.vclass not in ("deferred", "convex")
+                                and g.m_inv is None
+                                and g.size > accel_min_size)
             if vkey[0] == "inline":
                 cid, own = vkey[1]
                 cb = build.csgs[cid]
@@ -1122,13 +1150,16 @@ class Compiler:
         )
 
 
-def compile_scene(solid: S.Solid, lights: Sequence[Light] = ()) \
-        -> CompiledScene:
-    """Compile a solid DAG (+ lights) into flattened SoA tables."""
+def compile_scene(solid: S.Solid, lights: Sequence[Light] = (),
+                  accel_min_size: int = ACCEL_MIN_SIZE) -> CompiledScene:
+    """Compile a solid DAG (+ lights) into flattened SoA tables.
+
+    Groups larger than accel_min_size get a BVH on the pass-per-group
+    route; smaller groups are intersected densely there."""
     c = Compiler()
     root = c.compile_scene_solid(solid)
     assert root == 0
-    return c.pack(lights)
+    return c.pack(lights, accel_min_size=accel_min_size)
 
 
 def to_torch(arrays, device):

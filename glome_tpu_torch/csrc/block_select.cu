@@ -20,8 +20,8 @@
 // carry 12 inverse-matrix floats (walk.cuh prim_candidates, 1/sqrt like
 // K1).  At most a few constraint clauses (block_kernel.BLOCK_CONS_MAX
 // rows) are evaluated at each candidate point from a small descriptor
-// table, as block_kernel.py eval_cons does.  Shadow mode is any-hit: the
-// ray stops at its first blocker.
+// table (csrc/cons.cuh eval_cons, as block_kernel.cons_ok does).  Shadow
+// mode is any-hit: the ray stops at its first blocker.
 //
 // What bounds it on the card: the dependent loads of a divergent per-ray
 // walk (node boxes, then 36-byte triangle rows) out of the L2 cache: a
@@ -31,49 +31,11 @@
 
 #include <cuda_runtime.h>
 
+#include "cons.cuh"
 #include "prims.cuh"
 #include "walk.cuh"
 
 #define BLOCK_STACK_MAX 64
-
-// constraint descriptor (glome_tpu_torch.block_kernel.encode_cons):
-// [n_clauses, (positive, member_start, member_count) * n_clauses,
-//  (ptype, cf_off, M, Fm, has_inv) * n_members]; member_start is an
-// absolute index into the descriptor
-#define CC_W 3
-#define CMB_W 5
-
-struct Cons {
-  const float* __restrict__ cf;
-  const int* __restrict__ desc;
-};
-
-// every clause holds at the point: IN(member rows) == positive
-__device__ bool eval_cons(const Cons& C, float px, float py, float pz) {
-  int n_cl = C.desc[0];
-  for (int c = 0; c < n_cl; ++c) {
-    const int* cl = C.desc + 1 + c * CC_W;
-    bool inn = false;
-    for (int m = 0; m < cl[2]; ++m) {
-      const int* mb = C.desc + cl[1] + m * CMB_W;
-      int ptype = mb[0], M = mb[2], Fm = mb[3];
-      bool has_inv = mb[4] != 0;
-      for (int r = 0; r < M; ++r) {
-        const float* row = C.cf + mb[1] + r * Fm;
-        float x = px, y = py, z = pz;
-        if (has_inv) {
-          const float* mi = row + Fm - 12;
-          x = mi[0] * px + mi[1] * py + mi[2] * pz + mi[3];
-          y = mi[4] * px + mi[5] * py + mi[6] * pz + mi[7];
-          z = mi[8] * px + mi[9] * py + mi[10] * pz + mi[11];
-        }
-        inn = inn || inside_comp(ptype, row, x, y, z);
-      }
-    }
-    if (inn != (cl[0] != 0)) return false;
-  }
-  return true;
-}
 
 struct Group {
   const float* __restrict__ nf;   // (n_nodes, 6) node boxes
@@ -94,14 +56,7 @@ __device__ __forceinline__ bool leaf_test(const Group& G, const Cons& C,
                     t0, t1);
     bool v0 = (t0 > 0.0f) && (t0 < bt);
     bool v1 = (t1 > 0.0f) && (t1 < bt);
-    if (n_cl > 0) {
-      if (v0)
-        v0 = eval_cons(C, r.ox + r.dx * t0, r.oy + r.dy * t0,
-                       r.oz + r.dz * t0);
-      if (v1)
-        v1 = eval_cons(C, r.ox + r.dx * t1, r.oy + r.dy * t1,
-                       r.oz + r.dz * t1);
-    }
+    if (n_cl > 0) cons_filter(C, r, t0, t1, v0, v1);
     float tc = v0 ? t0 : (v1 ? t1 : GLOME_INF);
     if (tc < bt) {
       bt = tc;

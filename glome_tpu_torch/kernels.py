@@ -36,12 +36,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # each library: its .cu source first, then the headers it includes
 MEGA_SOURCES = ("mega_select.cu", "prims.cuh", "walk.cuh")
-BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh")
+BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
 MESH_SOURCES = ("mesh_block_select.cu", "prims.cuh", "walk.cuh")
+DENSE_SOURCES = ("dense_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
+BVH_SOURCES = ("bvh_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
 LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
-             "glome_mesh": MESH_SOURCES}
+             "glome_mesh": MESH_SOURCES, "glome_dense": DENSE_SOURCES,
+             "glome_bvh": BVH_SOURCES}
 
-# loaded libraries by path; the build log of each (nvcc + ptxas -v)
+# loaded libraries by name (each is built, hashed and loaded once per
+# process: the wrappers look their library up on every launch); the build
+# log of each library file (nvcc + ptxas -v)
 _LIBS = {}
 BUILD_INFO = {}
 
@@ -85,14 +90,13 @@ def build(sources, name: str) -> str:
 
 
 def _load(name: str, setup):
-    path = build(LIBRARIES[name], name)
-    lib = _LIBS.get(path)
+    lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(path)
+        lib = ctypes.CDLL(build(LIBRARIES[name], name))
         lib.glome_cuda_error_name.argtypes = [ctypes.c_int]
         lib.glome_cuda_error_name.restype = ctypes.c_char_p
         setup(lib)
-        _LIBS[path] = lib
+        _LIBS[name] = lib
     return lib
 
 
@@ -132,6 +136,27 @@ def _setup_mesh(lib):
     lib.glome_mesh_block_select.restype = _i32
 
 
+def _setup_dense(lib):
+    lib.glome_dense_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _vp, _i32,
+                                       _i32, _i32, _i32, _i32, _vp, _vp,
+                                       _i32, _vp, _vp, _vp, _vp]
+    lib.glome_dense_select.restype = _i32
+    for fn in (lib.glome_dense_block, lib.glome_dense_fx_max):
+        fn.argtypes = []
+        fn.restype = _i32
+    from .group_kernels import BP, FX_MAX
+    if (lib.glome_dense_block(), lib.glome_dense_fx_max()) != (BP, FX_MAX):
+        raise RuntimeError("csrc/dense_select.cu DENSE_BP / DENSE_FX_MAX != "
+                           "group_kernels.BP / FX_MAX")
+
+
+def _setup_bvh(lib):
+    lib.glome_bvh_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _i32, _vp,
+                                     _vp, _i32, _i32, _vp, _vp, _i32, _vp,
+                                     _vp, _vp, _vp]
+    lib.glome_bvh_select.restype = _i32
+
+
 def mega_select_lib():
     """The loaded K1 library (csrc/mega_select.cu), built on first use."""
     return _load("glome_mega", _setup_mega)
@@ -148,13 +173,24 @@ def mesh_select_lib():
     return _load("glome_mesh", _setup_mesh)
 
 
+def dense_select_lib():
+    """The loaded K4 library (csrc/dense_select.cu), built on first use."""
+    return _load("glome_dense", _setup_dense)
+
+
+def bvh_select_lib():
+    """The loaded K5 library (csrc/bvh_select.cu), built on first use."""
+    return _load("glome_bvh", _setup_bvh)
+
+
 def load_all():
-    """Run the three loaders at once, so the three nvcc builds overlap
+    """Run every library's loader at once, so the nvcc builds overlap
     (chip_smoke.py builds every kernel inside its time limit); returns
-    the paths of K1's, K2's and K3's libraries."""
-    with ThreadPoolExecutor(3) as pool:
-        futs = [pool.submit(f) for f in
-                (mega_select_lib, block_select_lib, mesh_select_lib)]
+    the paths of the K1-K5 libraries, in LIBRARIES order."""
+    loaders = (mega_select_lib, block_select_lib, mesh_select_lib,
+               dense_select_lib, bvh_select_lib)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        futs = [pool.submit(f) for f in loaders]
         for f in futs:
             f.result()
     return [build(LIBRARIES[name], name) for name in LIBRARIES]

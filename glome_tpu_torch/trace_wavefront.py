@@ -37,7 +37,8 @@ from . import color as C
 from . import megakernel as MK
 from .compile import CompiledScene
 from .config import DELTA, INFINITY, RenderConfig
-from .intersect import Hit, intersect_multi_table, shadow_query_table
+from .intersect import (MEGA, Hit, check_route, intersect_multi_table,
+                        shadow_query_table)
 from .trace import TraceResult, Tracer, _light_arrays
 from .vec import vnorm
 
@@ -86,20 +87,28 @@ def shadow_rays(hit, sid, lights, lpos, lrad):
 class WavefrontTracer(Tracer):
     """Per-level-queue tracer for the root scene with default lights.
 
-    `select` names the kernel set every intersect and shadow batch goes
-    through: megakernel.KERNELS (the CUDA kernels K1-K3 on CUDA tensors,
-    their plain versions on CPU tensors), or megakernel.PLAIN to run
-    the plain versions on any device."""
+    `route` names the intersection pipeline every intersect and shadow
+    batch goes through: intersect.MEGA (K1, then K2/K3 for the groups too
+    big for it) or intersect.GROUPS (glome_tpu's pass-per-group route:
+    K4/K5 per group).  `select` names the kernel set: megakernel.KERNELS
+    (the CUDA kernels on CUDA tensors, their plain versions on CPU
+    tensors), or megakernel.PLAIN to run the plain versions on any
+    device."""
 
     def __init__(self, compiled: CompiledScene, config: RenderConfig = None,
-                 select: str = MK.KERNELS):
+                 select: str = MK.KERNELS, route: str = MEGA):
         MK.kernel_set(select)                 # rejects an unknown name
+        check_route(route)
         super().__init__(compiled, config)
         for w in compiled.warp_mats:
             if tuple(w.lights) != tuple(compiled.lights):
                 raise NotImplementedError(
                     "wavefront tracer requires a single light set")
         self.select = select
+        self.route = route
+        # intersect and shadow batches of the last trace (each batch runs
+        # every select pass of its route once)
+        self.last_batches = 0
 
     def _segments(self):
         """Child-queue segment keys, in queue order."""
@@ -122,7 +131,9 @@ class WavefrontTracer(Tracer):
         dt = Q.dtype
         dev = Q.device
         Qc = Q.shape[1]
-        hit = intersect_multi_table(cc, arrays, Q, select=self.select)
+        hit = intersect_multi_table(cc, arrays, Q, select=self.select,
+                                    route=self.route)
+        self.last_batches += 1
 
         cdx, cdy, cdz = Q[3], Q[4], Q[5]
         sidf = Q[7]
@@ -132,7 +143,9 @@ class WavefrontTracer(Tracer):
                                                     lpos, lrad)
         if sh_segments:
             blocked = shadow_query_table(cc, arrays, table,
-                                         select=self.select)
+                                         select=self.select,
+                                         route=self.route)
+            self.last_batches += 1
             off = 0
             for li, idx in sh_segments:
                 b = torch.zeros(Qc, dtype=torch.bool, device=dev)
@@ -328,6 +341,7 @@ class WavefrontTracer(Tracer):
                          torch.full((N,), float(scene_id), dtype=dt,
                                     device=o.device)])
         stored_levels = []
+        self.last_batches = 0
         for level in range(R):
             Q, stored = self._down_level(arrays, Q, lights, lpos, lcol,
                                          lrad, last=(level == R - 1))

@@ -1,5 +1,5 @@
-"""K1, K2 and K3 on the card: each CUDA kernel against its plain
-version, and the wrappers' contracts.  Every test needs a CUDA device and skips without
+"""K1-K5 on the card: each CUDA kernel against its plain version, and
+the wrappers' contracts.  Every test needs a CUDA device and skips without
 one.  The card's machine has no JAX, so run these without the suite's
 conftest (which configures JAX):
 
@@ -199,3 +199,134 @@ def test_block_wrappers_reject_bad_inputs(dev):
         MSH.mesh_block_select(mplan, tri[:-1], rays, seed)
     with pytest.raises(ValueError):
         MSH.mesh_block_select(mplan, tri.t().contiguous().t(), rays, seed)
+
+
+# --- K4 and K5 (the pass-per-group route) ------------------------------------
+
+def _dense_case(dev, case):
+    """(scene, group index, device arrays) of a K4 check group: block_scene
+    spheres (plain), their difference (inline constraint), the rotated
+    boxes, the all-phase-kinds scene's transformed cones, and the CSG
+    scene's ground plane (no AABB cull)."""
+    from glome_tpu_torch.scenes.phasescene import block_scene
+    if case in ("spheres", "difference", "transformed"):
+        solid = block_scene(case)
+    elif case == "cones":
+        solid = phase_kinds_scene()
+    else:
+        solid = csg_scene()
+    compiled = T.compile_scene(solid, phase_kinds_lights())
+    sc = compiled.scenes[0]
+    ptype = {"cones": "cone", "planes": "plane"}.get(case)
+    gi = max((i for i, g in enumerate(sc.groups)
+              if g.vclass in ("plain", "inline")
+              and (ptype is None or g.ptype == ptype)
+              and bool(g.constraints) == (case == "difference")),
+             key=lambda i: sc.groups[i].size)
+    return sc, gi, T.to_torch(compiled.arrays(), dev)["scenes"][0]
+
+
+def _dense_inputs(sc, gi, garrs, shadow, dev):
+    from glome_tpu_torch import group_kernels as GK
+    g = sc.groups[gi]
+    ga = garrs[gi]
+    params = {k: v for k, v in ga.items() if k not in ("m_inv", "m_fwd")}
+    vis = torch.as_tensor((~g.noshadow if shadow else ~g.onlyshadow)
+                          .astype(np.float32), device=dev)
+    return (g.ptype, GK.pack_params_T(g.ptype, params), ga.get("m_inv"), vis,
+            GK.encode_constraints(GK.pack_constraints(sc, garrs, g), dev))
+
+
+@pytest.mark.parametrize("case", ["spheres", "difference", "transformed",
+                                  "cones", "planes"])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_dense_kernel_matches_plain(dev, case, shadow):
+    from glome_tpu_torch import group_kernels as GK
+    sc, gi, garrs = _dense_case(dev, case)
+    g = sc.groups[gi]
+    args = _dense_inputs(sc, gi, garrs, shadow, dev)
+    ga = garrs[gi]
+    bbox = GK.block_aabbs(g.ptype, {k: v for k, v in ga.items()
+                                    if k not in ("m_inv", "m_fwd")},
+                          ga.get("m_fwd"), g.size)
+    rays, seed = _block_rays(dev, 8192, 7.0 if shadow else T.INFINITY,
+                             5 if shadow else 4, 6.0)
+    if case in ("cones", "planes"):
+        # their own scenes' rays (dead lanes as in _block_rays)
+        rays = _rays(dev, 8192, 20.0 if shadow else T.INFINITY, 3,
+                     "csg" if case == "planes" else "phase_kinds")
+        rays[6, ::17] = 0.0
+        seed = rays[6].contiguous()
+    before = GK.dense_select.launches
+    k = GK.dense_select(*args, rays, seed, block_bbox=bbox, shadow=shadow)
+    p = GK.dense_select_plain(*args, rays, seed, block_bbox=bbox,
+                              shadow=shadow)
+    assert GK.dense_select.launches == before + 1
+    _assert_kernel_equals_plain(k, p, shadow)
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_bvh_kernel_matches_plain(dev, constrained, shadow):
+    from glome_tpu_torch import group_kernels as GK
+    from glome_tpu_torch.compile import group_accel
+    from glome_tpu_torch.scenes.phasescene import block_scene
+    compiled = T.compile_scene(
+        block_scene("difference" if constrained else "spheres"),
+        phase_kinds_lights(), accel_min_size=64)
+    sc = compiled.scenes[0]
+    gi = max((i for i, g in enumerate(sc.groups) if g.accel_eligible
+              and bool(g.constraints) == constrained),
+             key=lambda i: sc.groups[i].size)
+    g = sc.groups[gi]
+    garrs = T.to_torch(compiled.arrays(), dev)["scenes"][0]
+    bvh = group_accel(g)
+    order = torch.as_tensor(np.asarray(bvh.order, np.int64), device=dev)
+    rows = GK.pack_params_rows(g.ptype, {k: v[order]
+                                         for k, v in garrs[gi].items()})
+    vis = torch.as_tensor((~g.noshadow if shadow else ~g.onlyshadow)
+                          .astype(np.float32), device=dev)[order].contiguous()
+    cons = GK.encode_constraints(GK.pack_constraints(sc, garrs, g), dev)
+    assert bool(cons.spec) == constrained
+    rays, seed = _block_rays(dev, 8192, 7.0 if shadow else T.INFINITY,
+                             5 if shadow else 4, 6.0)
+    before = GK.bvh_select.launches
+    k = GK.bvh_select(g.ptype, bvh, rows, vis, cons, rays, seed, shadow)
+    p = GK.bvh_select_plain(g.ptype, bvh, rows, vis, cons, rays, seed, shadow)
+    assert GK.bvh_select.launches == before + 1
+    _assert_kernel_equals_plain(k, p, shadow)
+
+
+def test_group_wrappers_reject_bad_inputs(dev):
+    from glome_tpu_torch import group_kernels as GK
+    sc, gi, garrs = _dense_case(dev, "transformed")
+    ptype, pm, minv, vis, cons = _dense_inputs(sc, gi, garrs, False, dev)
+    rays, seed = _block_rays(dev, 256, T.INFINITY, 0, 6.0)
+    with pytest.raises(ValueError):
+        GK.dense_select(ptype, pm.cpu(), minv, vis, cons, rays, seed)
+    with pytest.raises(ValueError):
+        GK.dense_select(ptype, pm, minv, vis[:-1].contiguous(), cons, rays,
+                        seed)
+    with pytest.raises(TypeError):
+        GK.dense_select(ptype, pm.double(), minv, vis, cons, rays, seed)
+    with pytest.raises(ValueError):
+        GK.dense_select(ptype, pm, minv, vis, cons, rays,
+                        seed[:-1].contiguous())
+
+
+def test_group_route_kernels_match_plain_route(dev):
+    """The whole group route through K4/K5 against the same route through
+    the plain versions, on the all-phase-kinds scene with its lattice
+    groups given a BVH."""
+    from glome_tpu_torch import intersect as TI
+    compiled = T.compile_scene(phase_kinds_scene(), phase_kinds_lights(),
+                               accel_min_size=64)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    o, d = (torch.as_tensor(a, device=dev) for a in phase_kinds_rays(4096))
+    sid = torch.zeros(4096, dtype=torch.int32, device=dev)
+    hk = TI.intersect_multi(compiled, arrays, o, d, sid)
+    hp = TI.intersect_multi(compiled, arrays, o, d, sid, select=MK.PLAIN)
+    torch.cuda.synchronize()
+    assert torch.equal(hk.hit, hp.hit)
+    assert torch.equal(hk.t, hp.t)
+    assert torch.equal(hk.prim_serial, hp.prim_serial)

@@ -1,0 +1,328 @@
+"""The pass-per-group route of the port (intersect.GROUPS) against
+glome_tpu's, on the CPU.
+
+  - the lazy group BVH (compile.group_accel) against the g.accel
+    glome_tpu's compiler attaches, and the groups that get one;
+  - K4 / K5's plain versions (group_kernels.dense_select_plain /
+    bvh_select_plain, what CPU tensors run) against glome_tpu's Pallas
+    dense_intersect / bvh_intersect in interpret mode;
+  - TestScene 90x60 depth 3 through WavefrontTracer(route=GROUPS)
+    against glome_tpu's CPU golden of the frame.
+
+Tolerances (ROADMAP Queue 3): hit / blocked agree on >= 99.9% of lanes;
+t within rtol 5e-5 / atol 1e-4 on >= 99.9% of lanes (see RTOL); a
+winner may differ from glome_tpu's only where the two t tie to that
+tolerance.  In shadow mode only "blocked" is compared: the TPU kernels
+stop at some blocker, not the nearest.  tests/test_torch_group_route.py
+holds the whole pipeline against glome_tpu's.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import glome_tpu as G
+import glome_tpu_torch as T
+from glome_tpu import pallas_kernels as PK
+from glome_tpu.scenes import test_scene as jax_test_scene
+from glome_tpu_torch import group_kernels as GK
+from glome_tpu_torch import intersect as TI
+from glome_tpu_torch import megakernel as TMK
+from glome_tpu_torch.compile import group_accel
+from glome_tpu_torch.io import quantize, read_png
+from glome_tpu_torch.scenes import test_scene as torch_test_scene
+from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
+                                               phase_kinds_lights,
+                                               phase_kinds_rays,
+                                               phase_kinds_scene)
+
+INF = T.INFINITY
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "testscene_90x60_cpu.png")
+BVH_TABLES = ("bmin", "bmax", "skip", "leaf_start", "leaf_count", "order")
+# t tolerance of the kernel comparisons.  Grazing hits are ill-conditioned
+# in float32: on such lanes the Pallas interpreter's arithmetic (XLA's
+# CPU code; rsqrt for transformed rows, pallas_kernels.py:470) and the
+# port's land up to ~3e-5 of t apart (2 of 512 lanes on the thin cones
+# and on the constrained spheres), with the same winner, so t is held at
+# K1's rtol 5e-5 / atol 1e-4 (ROADMAP Queue 3) rather than 1e-5.
+RTOL, ATOL = 5e-5, 1e-4
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def testscene_pair():
+    sj, lj, _ = jax_test_scene()
+    st, lt, cam = torch_test_scene()
+    return G.compile_scene(sj, lj), T.compile_scene(st, lt), cam
+
+
+def _jnp(arrays):
+    return jax.tree.map(jnp.asarray, arrays)
+
+
+# --- the group BVH -----------------------------------------------------------
+
+def test_group_bvh_matches_glome_tpu(testscene_pair):
+    cj, ct, _cam = testscene_pair
+    trees = 0
+    for gj, gt in zip(cj.scenes[0].groups, ct.scenes[0].groups):
+        assert gt.accel_eligible == (gj.accel is not None)
+        if gj.accel is None:
+            assert group_accel(gt) is None
+            continue
+        trees += 1
+        bvh = group_accel(gt)
+        assert group_accel(gt) is bvh                       # cached
+        for k in BVH_TABLES:
+            np.testing.assert_array_equal(getattr(bvh, k),
+                                          getattr(gj.accel, k), err_msg=k)
+    assert trees == 2          # the two lattice groups (2,786 and 2,816)
+
+
+@pytest.mark.parametrize("accel_min_size", [16, 100])
+def test_accel_min_size_picks_the_same_groups(accel_min_size):
+    cj = G.compile_scene(phase_kinds_scene(G), phase_kinds_lights(G),
+                         accel_min_size=accel_min_size)
+    ct = T.compile_scene(phase_kinds_scene(T), phase_kinds_lights(T),
+                         accel_min_size=accel_min_size)
+    picked = [g.accel is not None for g in cj.scenes[0].groups]
+    assert any(picked)
+    assert [g.accel_eligible for g in ct.scenes[0].groups] == picked
+
+
+def test_megakernel_route_builds_no_group_tree():
+    st, lt, _cam = torch_test_scene()
+    ct = T.compile_scene(st, lt)
+    o, d = phase_kinds_rays(64)
+    TMK.mega_intersect(ct, T.to_torch(ct.arrays(), "cpu"),
+                       torch.as_tensor(o), torch.as_tensor(d))
+    assert any(g.accel_eligible for g in ct.scenes[0].groups)
+    assert not any("_accel" in g.__dict__ for sc in ct.scenes
+                   for g in sc.groups)
+
+
+# --- K4 / K5 plain versions against the Pallas kernels ---------------------
+
+def _kernel_rays(n, seed_t, rng_seed):
+    o, d = block_rays(n, rng_seed)
+    seeds = np.full(n, seed_t, np.float32)
+    seeds[::17] = 0.0                             # dead lanes
+    return o, d, seeds
+
+
+def _port_rays(o, d):
+    return torch.as_tensor(np.concatenate([o.T, d.T])).contiguous()
+
+
+def _assert_select_close(got, want, shadow, rtol=RTOL):
+    """(t, local) of a plain version against the Pallas kernel's."""
+    (tg, lg), (tw, lw) = got, want
+    hg, hw = lg >= 0, lw >= 0
+    n = len(tg)
+    print(f"{'blocked' if shadow else 'hit'}: {int(hw.sum())}/{n}, "
+          f"disagree on {int((hg != hw).sum())}")
+    assert 0 < hw.sum() < n
+    assert (hg != hw).mean() <= 1e-3
+    if shadow:
+        return
+    close = np.isclose(tg, tw, rtol=rtol, atol=ATOL)
+    print(f"t outside rtol {rtol}/atol {ATOL}: {int((~close).sum())}")
+    assert (~close).mean() <= 1e-3
+    diff = hg & hw & (lg != lw)
+    # a differing winner only where the two distances tie
+    assert np.all(close[diff])
+    assert diff.mean() <= 1e-3
+
+
+def _dense_group(kind):
+    """(compiled glome_tpu scene, group index) of a K4 check group."""
+    rng = np.random.RandomState(0)
+
+    def spheres(n):
+        return [G.sphere(tuple(rng.uniform(-4, 4, 3)),
+                         float(rng.uniform(0.2, 0.6))) for _ in range(n)]
+    if kind == "spheres":
+        solid = G.group(spheres(300))
+    elif kind == "difference":
+        solid = G.difference(G.group(spheres(900)),
+                             G.sphere((0.0, 0.0, 0.0), 2.5))
+    elif kind == "boxes":
+        solid = block_scene("transformed", G)
+    elif kind == "cones":
+        cones = []
+        for _ in range(300):
+            p = rng.uniform(-4, 4, 3)
+            q = p + rng.normal(size=3) * 0.6
+            cones.append(G.cone(tuple(p), float(rng.uniform(0.1, 0.4)),
+                                tuple(q), float(rng.uniform(0.0, 0.1))))
+        solid = G.group(cones)
+    else:
+        solid = G.group([G.plane(tuple(rng.uniform(-5, 5, 3)),
+                                 tuple(rng.normal(size=3)))
+                         for _ in range(40)])
+    compiled = G.compile_scene(solid, ())
+    sc = compiled.scenes[0]
+    gi = max((i for i, g in enumerate(sc.groups)
+              if g.vclass in ("plain", "inline")
+              and (kind != "difference" or g.constraints)),
+             key=lambda i: sc.groups[i].size)
+    return compiled, gi
+
+
+@pytest.mark.parametrize("kind", ["spheres", "difference", "boxes", "cones",
+                                  "planes"])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_dense_select_plain_matches_pallas(kind, shadow):
+    compiled, gi = _dense_group(kind)
+    sc = compiled.scenes[0]
+    g = sc.groups[gi]
+    assert (g.m_inv is not None) == (kind in ("boxes", "cones"))
+    assert bool(g.constraints) == (kind == "difference")
+    garrs_j = _jnp(compiled.arrays())["scenes"][0]
+    garrs_t = T.to_torch(compiled.arrays(), "cpu")["scenes"][0]
+    pj = {k: v for k, v in garrs_j[gi].items() if k not in ("m_inv", "m_fwd")}
+    pt = {k: v for k, v in garrs_t[gi].items() if k not in ("m_inv", "m_fwd")}
+    pm_j = PK.pack_params_T(g.ptype, pj)
+    pm_t = GK.pack_params_T(g.ptype, pt)
+    np.testing.assert_array_equal(pm_t.numpy(), np.asarray(pm_j))
+    bb_j = PK.block_aabbs(g.ptype, pj, garrs_j[gi].get("m_fwd"), g.size,
+                          PK.BP)
+    bb_t = GK.block_aabbs(g.ptype, pt, garrs_t[gi].get("m_fwd"), g.size)
+    assert (bb_j is None) == (kind == "planes") == (bb_t is None)
+    if bb_t is not None:
+        np.testing.assert_allclose(bb_t.numpy(), np.asarray(bb_j),
+                                   rtol=1e-6, atol=1e-6)
+    vis = (~g.onlyshadow if not shadow else ~g.noshadow).astype(np.float32)
+    o, d, seeds = _kernel_rays(512, 6.0 if shadow else INF,
+                               3 if shadow else 2)
+    tw, lw = PK.dense_intersect(
+        g.ptype, pm_j, garrs_j[gi].get("m_inv"), jnp.asarray(vis),
+        PK.pack_constraints(sc, garrs_j, g), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(seeds), interpret=True, block_bbox=bb_j, shadow=shadow)
+    minv = garrs_t[gi].get("m_inv")
+    cons = GK.encode_constraints(GK.pack_constraints(sc, garrs_t, g), "cpu")
+    calls = GK.dense_select_plain.calls
+    tg, lg = GK.dense_select(g.ptype, pm_t, minv, torch.as_tensor(vis),
+                             cons, _port_rays(o, d), torch.as_tensor(seeds),
+                             block_bbox=bb_t, shadow=shadow)
+    assert GK.dense_select_plain.calls == calls + 1   # CPU -> plain version
+    assert GK.dense_select.launches == 0
+    _assert_select_close((tg.numpy(), lg.numpy()),
+                         (np.asarray(tw), np.asarray(lw)), shadow)
+
+
+@pytest.mark.parametrize("constrained", [False, True])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_bvh_select_plain_matches_pallas(constrained, shadow):
+    rng = np.random.RandomState(5)
+    solid = G.group([G.sphere(tuple(rng.uniform(-6, 6, 3)),
+                              float(rng.uniform(0.1, 0.35)))
+                     for _ in range(3000)])
+    if constrained:
+        solid = G.difference(solid, G.sphere((0.0, 0.0, 0.0), 3.0))
+    compiled = G.compile_scene(solid, (), accel_min_size=64)
+    sc = compiled.scenes[0]
+    gi = max((i for i, g in enumerate(sc.groups) if g.accel is not None
+              and bool(g.constraints) == constrained),
+             key=lambda i: sc.groups[i].size)
+    g = sc.groups[gi]
+    order = np.asarray(g.accel.order)
+    garrs_j = _jnp(compiled.arrays())["scenes"][0]
+    garrs_t = T.to_torch(compiled.arrays(), "cpu")["scenes"][0]
+    rows_j = PK.pack_params_rows(g.ptype, {k: v[order]
+                                           for k, v in garrs_j[gi].items()})
+    rows_t = GK.pack_params_rows(g.ptype, {k: v[torch.as_tensor(order)]
+                                           for k, v in garrs_t[gi].items()})
+    np.testing.assert_array_equal(rows_t.numpy(), np.asarray(rows_j))
+    vis = ((~g.noshadow if shadow else ~g.onlyshadow)[order]
+           .astype(np.float32))
+    o, d, seeds = _kernel_rays(512, 7.0 if shadow else INF,
+                               5 if shadow else 4)
+    seeds[::17] = 0.0
+    tw, lw = PK.bvh_intersect(g.ptype, g.accel, rows_j, jnp.asarray(vis),
+                              PK.pack_constraints(sc, garrs_j, g),
+                              jnp.asarray(o), jnp.asarray(d),
+                              jnp.asarray(seeds), shadow=shadow,
+                              interpret=True)
+    cons = GK.encode_constraints(GK.pack_constraints(sc, garrs_t, g), "cpu")
+    assert bool(cons.spec) == constrained
+    tg, lg = GK.bvh_select(g.ptype, g.accel, rows_t, torch.as_tensor(vis),
+                           cons, _port_rays(o, d), torch.as_tensor(seeds),
+                           shadow=shadow)
+
+    def local(leaf):
+        return np.where(leaf >= 0, order[np.maximum(leaf, 0)], -1)
+    _assert_select_close((tg.numpy(), local(lg.numpy())),
+                         (np.asarray(tw), local(np.asarray(lw))), shadow)
+
+
+def test_unknown_route_is_refused(testscene_pair):
+    _cj, ct, _cam = testscene_pair
+    with pytest.raises(ValueError):
+        T.WavefrontTracer(ct, route="pallas")
+    with pytest.raises(ValueError):
+        TI.intersect_multi_table(ct, None, torch.zeros((8, 1)),
+                                 route="pallas")
+
+
+# --- the 90x60 frame on the group route ------------------------------------
+
+@pytest.fixture(scope="module")
+def group_frame(testscene_pair):
+    _cj, ct, cam = testscene_pair
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = T.RenderConfig.tuned(xres=90, yres=60)
+        tracer = T.WavefrontTracer(ct, cfg, route=TI.GROUPS)
+        renderer = T.Renderer(tracer, cam, cfg)
+        before = (GK.dense_select.launches, GK.bvh_select.launches,
+                  GK.dense_select_plain.calls, GK.bvh_select_plain.calls,
+                  TMK.mega_select_plain.calls)
+        rgb, _depth = renderer.render(T.to_torch(ct.arrays(), "cpu"))
+        after = (GK.dense_select.launches, GK.bvh_select.launches,
+                 GK.dense_select_plain.calls, GK.bvh_select_plain.calls,
+                 TMK.mega_select_plain.calls)
+        return dict(rgb=rgb, overflow=renderer.last_overflow,
+                    batches=tracer.last_batches,
+                    counts=[b - a for a, b in zip(before, after)])
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_group_route_frame_within_golden_canaries(group_frame):
+    assert tuple(group_frame["rgb"].shape) == (60, 90, 3)
+    assert torch.isfinite(group_frame["rgb"]).all()
+    assert int(group_frame["overflow"].sum()) == 0
+    got = quantize(group_frame["rgb"].numpy())
+    want = read_png(GOLDEN)
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(axis=-1)
+    print(f"group route drift vs CPU golden: mean {diff.mean():.4f} levels, "
+          f"{int((diff > 64).sum())}/{diff.size} pixels > 64, "
+          f"{int((diff > 0).sum())}/{diff.size} pixels differ")
+    assert diff.mean() <= 3.0
+    assert (diff > 64).sum() <= 0.006 * diff.size
+
+
+def test_group_route_frame_runs_the_plain_versions(group_frame):
+    """On CPU tensors every K4 / K5 pass takes its plain version: seven
+    dense and two BVH groups of TestScene per intersect or shadow batch,
+    and no megakernel call."""
+    k4, k5, p4, p5, p1 = group_frame["counts"]
+    batches = group_frame["batches"]
+    assert batches == 6            # intersect + shadow at each of 3 levels
+    assert (k4, k5) == (0, 0)
+    assert (p4, p5) == (7 * batches, 2 * batches)
+    assert p1 == 0
