@@ -7,11 +7,15 @@ the hand-written CUDA kernels K1 (csrc/mega_select.cu), K2
 (csrc/block_select.cu) and K3 (csrc/mesh_block_select.cu) on the
 megakernel route, and K4 (csrc/dense_select.cu) and K5
 (csrc/bvh_select.cu) on the pass-per-group route
-(WavefrontTracer(route=intersect.GROUPS)), and checks them in phases:
+(WavefrontTracer(route=intersect.GROUPS)), and the card microbenchmarks
+M1 (csrc/micro_prims.cu) and M2 (csrc/micro_kwide.cu) through their
+tools' entry points (python -m glome_tpu_torch.tools.micro_prims /
+micro_kwide), and checks them in phases:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: K1-K5 from the sources in this checkout, one nvcc each, all
-     started together (build seconds, ptxas register and spill counts);
+  2. build: all seven libraries (K1-K5, M1, M2) from the sources in this
+     checkout, one nvcc each, all started together (build seconds, ptxas
+     register and spill counts);
   3. K1 against mega_select_plain on the card, on the all-phase-kinds
      scene, the CSG scene and TestScene's 345,600 primary rays (L0),
      intersect and shadow;
@@ -69,11 +73,25 @@ megakernel route, and K4 (csrc/dense_select.cu) and K5
  16. group-route timing with CUDA events and the SM clock sampled: the
      720x480 frame, one K4 launch on the cone group's L0 batch and one K5
      launch on the 2,816-sphere group's, each against one plain launch,
-     and one profiled frame (device busy share, K4's and K5's shares).
+     and one profiled frame (device busy share, K4's and K5's shares);
+ 17. M1 on the card: micro_prims.main() at the tool's size (256 tiles,
+     262,144 rays) launches every variant's kernel (each > 0 times, no
+     plain call) and times it (tools.device_time, the SM clock sampled);
+     then every variant against its plain version on the same inputs,
+     bit-equal except f_mxu128 (rtol / atol 1e-4 on >= 99.9% of rays, its
+     3xTF32 tensor-core product), the plain version's time, and each
+     variant's bound from the sphere tests its tiles made;
+ 18. M2 likewise through micro_kwide.main(): the K-wide walk at K = 1, 2,
+     4, 8, 16 (visited nodes per tile, exactly the plain version's) and
+     the scratch reads at NREAD = 16, 64.
 
 Kernel against plain: hit/blocked agree on >= 99.9% of lanes, t within
 rtol 5e-5 / atol 1e-4 on >= 99.9% of the agreeing lanes, and the winner
 differs beyond a distance tie on <= 0.1% of lanes.
+
+In the kernels line each M1 and M2 variant is an entry of its own, named
+"micro_prims.<variant>" or "micro_kwide.<variant>": it has its own C
+entry, launch count, time and bound.
 
 Prints a JSON line of the kernels, then the nvidia-smi name/power-limit
 line, then last {"ok": true, "device": {...}}.  Any failed phase, a
@@ -102,6 +120,7 @@ MESH_RES = (1920, 1080)
 PLAIN_RES = (240, 135)        # every 8th pixel of MESH_RES: the same rays
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
+TF32_FLOPS = 495e12           # dense tensor-core TF32 (the same data sheet)
 # float32 operations of one test (csrc/walk.cuh box_live; prims.cuh
 # triangle_t and sphere_t, the cheapest prim: a lower bound for K1's mix)
 BOX_FLOPS, TRI_FLOPS, MIN_PRIM_FLOPS = 25, 60, 21
@@ -178,6 +197,8 @@ def main():
     from glome_tpu_torch.io import quantize, read_png, write_png
     from glome_tpu_torch.render import pixel_coords, primary_rays, tile_order
     from glome_tpu_torch.scenes import mesh_scene, test_scene
+    from glome_tpu_torch.tools import micro_kwide as MKW
+    from glome_tpu_torch.tools import micro_prims as MPR
     from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
                                                    csg_rays, csg_scene,
                                                    phase_kinds_lights,
@@ -205,6 +226,23 @@ def main():
         "bvh_select": {"name": "bvh_select", "route": "cuda",
                        "source": "glome_tpu_torch/csrc/bvh_select.cu",
                        "replaces": "glome_tpu/pallas_kernels.py:558"}}
+    # the microbenchmarks: each variant is a kernel of its own (its own C
+    # entry, wrapper and launch count), replacing one Pallas body of the
+    # tool's (tools/micro_prims.py:65 mk, tools/micro_kwide.py:47 / :138)
+    micro_tools = {"micro_prims": MPR, "micro_kwide": MKW}
+    micro_bodies = {"a_vote_while": 82, "b_dense_fori": 99, "c_gate8": 111,
+                    "c_gate16": 111, "c_gate32": 111, "d_bits168": 130,
+                    "e_lane8x128": 168, "f_mxu128": 196}
+    micro_kernels = {}
+    for key, tool in micro_tools.items():
+        for v in tool.VARIANTS:
+            name = f"{key}.{v.name}"
+            line = (micro_bodies[v.name] if key == "micro_prims"
+                    else 47 if v.name.startswith("walk") else 138)
+            micro_kernels[name] = v
+            entries[name] = {"name": name, "route": "cuda",
+                             "source": f"glome_tpu_torch/csrc/{key}.cu",
+                             "replaces": f"tools/{key}.py:{line}"}
     for e in entries.values():
         e["library_ms"] = None        # no single PyTorch call computes it
         e["launches_by_path"] = {}
@@ -215,7 +253,7 @@ def main():
                   "bvh_select": GK.bvh_select}
     plain_fns = (MK.mega_select_plain, BK.block_select_plain,
                  MSH.mesh_block_select_plain, GK.dense_select_plain,
-                 GK.bvh_select_plain)
+                 GK.bvh_select_plain) + MPR.PLAIN + MKW.PLAIN
 
     def phase(title, fn):
         print(f"== {title}", flush=True)
@@ -235,6 +273,8 @@ def main():
         torch.cuda.synchronize()
         for fn in kernel_fns.values():
             fn.launches = 0
+        for v in micro_kernels.values():
+            v.kernel.launches = 0
         for fn in plain_fns:
             fn.calls = 0
 
@@ -242,13 +282,16 @@ def main():
         """Launch counts since reset_counts, recorded under `path`."""
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in kernel_fns.items()}
+        counts.update((k, v.kernel.launches) for k, v in micro_kernels.items())
         for k, c in counts.items():
             entries[k]["launches_by_path"][path] = c
+        m1, m2 = (sum(c for k, c in counts.items() if k.startswith(t + "."))
+                  for t in micro_tools)
         counts["plain"] = sum(fn.calls for fn in plain_fns)
         print(f"  launches: K1 {counts['mega_select']}, K2 "
               f"{counts['block_select']}, K3 {counts['mesh_block_select']}, "
               f"K4 {counts['dense_select']}, K5 {counts['bvh_select']}, "
-              f"plain calls {counts['plain']}")
+              f"M1 {m1}, M2 {m2}, plain calls {counts['plain']}")
         return counts
 
     def cuda_ms(fn, reps, warm=1):
@@ -1147,8 +1190,87 @@ def main():
         return True
     phase("16 group-route timing", p_group_timing)
 
-    if "jax" in sys.modules or "glome_tpu" in sys.modules:
-        print("jax or glome_tpu was imported")
+    # -- 17/18. the card microbenchmarks M1 and M2 -------------------------
+    def micro_bound(v, inp, tally):
+        """(bound ms, "bytes" | "operations", detail) of one variant's
+        launch: the ray components it reads, its tables and its output
+        once over HBM_BPS, against the float32 work of the tests its
+        tiles made (tally) over F32_FLOPS and, for f, its 3xTF32 product
+        over TF32_FLOPS."""
+        n_t = inp["rays"].shape[1]
+        n_rays = n_t * MPR.TILE
+        nbytes = (4 * (v.ray_comps + 1) * n_rays
+                  + sum(4 * inp[t].numel() for t in v.tables))
+        tests = int(tally.sum())
+        t_bytes = nbytes / HBM_BPS * 1e3
+        t_ops = tests * v.tile_ops / F32_FLOPS * 1e3
+        if v.name == "f_mxu128":
+            t_ops = max(t_ops, tests * MPR.TILE * MPR.MXU_TF32_OPS
+                        / TF32_FLOPS * 1e3)
+        detail = (f"{nbytes / 1e6:.3f} MB -> {1e3 * t_bytes:.3f} us, "
+                  f"{tests / n_t:.2f} tests per tile -> "
+                  f"{1e3 * t_ops:.3f} us")
+        if t_bytes >= t_ops:
+            return t_bytes, "bytes", detail
+        return t_ops, "operations", detail
+
+    def p_micro(key, path):
+        tool = micro_tools[key]
+        print(f"  [{smi_line}] clocks at the start: {clocks()}")
+        reset_counts()
+        rows = tool.main([])          # the tool's entry point, its size
+        counts = read_counts(path)
+        launched = {v.name: v.kernel.launches for v in tool.VARIANTS}
+        print(f"  clocks after the timed rows: {clocks()}")
+        ok = (counts["plain"] == 0 and all(launched.values())
+              and all(counts[k] == 0 for k in counts
+                      if k != "plain" and not k.startswith(key + ".")))
+        inp = tool.device_inputs(dev)
+        for v, sec, _out in rows:
+            args = (inp["rays"], *(inp[t] for t in v.tables))
+            k = v.kernel(*args)
+            tally = torch.zeros(tool.T, dtype=torch.int64, device=dev)
+            p = v.plain(*args, tally=tally)
+            torch.cuda.synchronize()
+            err = float((k - p).abs().max())
+            if v.name == "f_mxu128":
+                frac = float(torch.isclose(k, p, rtol=MPR.MXU_RTOL,
+                                           atol=MPR.MXU_ATOL).float().mean())
+                good = frac >= MPR.MXU_AGREE
+                check = (f"within rtol {MPR.MXU_RTOL} / atol {MPR.MXU_ATOL} "
+                         f"on {100 * frac:.4f}% of rays (>= "
+                         f"{100 * MPR.MXU_AGREE}%)")
+            else:
+                good = torch.equal(k, p)
+                check = "bit-equal" if good else "NOT bit-equal"
+            pms = cuda_ms(lambda: v.plain(*args), 1, warm=0)
+            bound, by, detail = micro_bound(v, inp, tally)
+            row = {"ms": sec * 1e3, "plain_ms": pms, "bound_ms": bound,
+                   "bound_by": by, "max_abs_err": err,
+                   "tests_per_tile": int(tally.sum()) / tool.T}
+            if v.units is None:       # a walk: the nodes it visited
+                per_tile = k[:, 0, 0]
+                row.update(visited_tile0=float(per_tile[0]),
+                           visited_mean=float(per_tile.mean()))
+                extra = (f", visited/tile {float(per_tile[0]):.0f} (tile "
+                         f"0), {float(per_tile.mean()):.2f} (mean)")
+            else:
+                extra = ""
+            print(f"  [{smi_line}] {v.name}: {launched[v.name]} launches, "
+                  f"{sec * 1e3:.5f} ms/launch, plain {pms:.4f} ms, bound "
+                  f"{bound * 1e3:.3f} us ({by}: {detail}); kernel vs plain "
+                  f"{check}, max |diff| {err:.3g}{extra}")
+            ok &= good
+            entries[f"{key}.{v.name}"].update(row)
+        return ok
+    phase("17 M1 micro_prims on the card",
+          lambda: p_micro("micro_prims", "micro_prims_T256"))
+    phase("18 M2 micro_kwide on the card",
+          lambda: p_micro("micro_kwide", "micro_kwide_T256"))
+
+    if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
+           for m in sys.modules):
+        print("jax, glome_tpu or tools was imported")
         failed.append("no-jax")
     if failed:
         print(f"chip_smoke FAILED: {failed}")
@@ -1158,7 +1280,9 @@ def main():
                        ("block_select", "mesh100k_1080p_cast1"),
                        ("mesh_block_select", "mesh250k_1080p_cast1"),
                        ("dense_select", "testscene_720x480_groups"),
-                       ("bvh_select", "testscene_720x480_groups")):
+                       ("bvh_select", "testscene_720x480_groups"),
+                       *((k, k.split(".")[0] + "_T256")
+                         for k in micro_kernels)):
         entries[name]["launches"] = entries[name]["launches_by_path"][path]
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line)

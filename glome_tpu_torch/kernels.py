@@ -40,9 +40,13 @@ BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
 MESH_SOURCES = ("mesh_block_select.cu", "prims.cuh", "walk.cuh")
 DENSE_SOURCES = ("dense_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
 BVH_SOURCES = ("bvh_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
+MICRO_PRIMS_SOURCES = ("micro_prims.cu", "micro.cuh")
+MICRO_KWIDE_SOURCES = ("micro_kwide.cu", "micro.cuh")
 LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
              "glome_mesh": MESH_SOURCES, "glome_dense": DENSE_SOURCES,
-             "glome_bvh": BVH_SOURCES}
+             "glome_bvh": BVH_SOURCES,
+             "glome_micro_prims": MICRO_PRIMS_SOURCES,
+             "glome_micro_kwide": MICRO_KWIDE_SOURCES}
 
 # loaded libraries by name (each is built, hashed and loaded once per
 # process: the wrappers look their library up on every launch); the build
@@ -157,6 +161,33 @@ def _setup_bvh(lib):
     lib.glome_bvh_select.restype = _i32
 
 
+# the C entries of csrc/micro_prims.cu, one per variant:
+# (rays, T, table, [P, [STEPS]], out, stream)
+MICRO_PRIMS_ENTRIES = {
+    "glome_micro_vote_while": [_vp, _i32, _vp, _i32, _i32, _vp, _vp],
+    "glome_micro_dense_fori": [_vp, _i32, _vp, _i32, _vp, _vp],
+    "glome_micro_gate8": [_vp, _i32, _vp, _i32, _vp, _vp],
+    "glome_micro_gate16": [_vp, _i32, _vp, _i32, _vp, _vp],
+    "glome_micro_gate32": [_vp, _i32, _vp, _i32, _vp, _vp],
+    "glome_micro_bits168": [_vp, _i32, _vp, _i32, _vp, _vp],
+    "glome_micro_lane8x128": [_vp, _i32, _vp, _vp, _vp],
+    "glome_micro_mxu128": [_vp, _i32, _vp, _vp, _vp]}
+
+
+def _setup_micro_prims(lib):
+    for name, argtypes in MICRO_PRIMS_ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _i32
+
+
+def _setup_micro_kwide(lib):
+    lib.glome_micro_walk.argtypes = [_vp, _i32, _vp, _i32, _i32, _vp, _vp]
+    lib.glome_micro_walk.restype = _i32
+    lib.glome_micro_vread.argtypes = [_vp, _i32, _i32, _vp, _vp]
+    lib.glome_micro_vread.restype = _i32
+
+
 def mega_select_lib():
     """The loaded K1 library (csrc/mega_select.cu), built on first use."""
     return _load("glome_mega", _setup_mega)
@@ -183,12 +214,23 @@ def bvh_select_lib():
     return _load("glome_bvh", _setup_bvh)
 
 
+def micro_prims_lib():
+    """The loaded M1 library (csrc/micro_prims.cu), built on first use."""
+    return _load("glome_micro_prims", _setup_micro_prims)
+
+
+def micro_kwide_lib():
+    """The loaded M2 library (csrc/micro_kwide.cu), built on first use."""
+    return _load("glome_micro_kwide", _setup_micro_kwide)
+
+
 def load_all():
     """Run every library's loader at once, so the nvcc builds overlap
     (chip_smoke.py builds every kernel inside its time limit); returns
-    the paths of the K1-K5 libraries, in LIBRARIES order."""
+    the paths of all the libraries, in LIBRARIES order."""
     loaders = (mega_select_lib, block_select_lib, mesh_select_lib,
-               dense_select_lib, bvh_select_lib)
+               dense_select_lib, bvh_select_lib, micro_prims_lib,
+               micro_kwide_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         futs = [pool.submit(f) for f in loaders]
         for f in futs:

@@ -1,5 +1,5 @@
-"""K1-K5 on the card: each CUDA kernel against its plain version, and
-the wrappers' contracts.  Every test needs a CUDA device and skips without
+"""K1-K5, M1 and M2 on the card: each CUDA kernel against its plain
+version, and the wrappers' contracts.  Every test needs a CUDA device and skips without
 one.  The card's machine has no JAX, so run these without the suite's
 conftest (which configures JAX):
 
@@ -330,3 +330,69 @@ def test_group_route_kernels_match_plain_route(dev):
     assert torch.equal(hk.hit, hp.hit)
     assert torch.equal(hk.t, hp.t)
     assert torch.equal(hk.prim_serial, hp.prim_serial)
+
+
+# --- M1 and M2 (the card microbenchmarks, glome_tpu_torch.tools) -------------
+
+def _micro_names():
+    from glome_tpu_torch.tools import micro_kwide, micro_prims
+    return ([("prims", v.name) for v in micro_prims.VARIANTS]
+            + [("kwide", v.name) for v in micro_kwide.VARIANTS])
+
+
+@pytest.mark.parametrize("tool_name,name", _micro_names())
+def test_micro_kernel_matches_plain(dev, tool_name, name):
+    """Every variant at T = 8 against its plain version: bit-equal, except
+    f's tensor-core product (micro_prims.MXU_RTOL / MXU_ATOL)."""
+    from glome_tpu_torch.tools import micro_kwide, micro_prims
+    tool = micro_prims if tool_name == "prims" else micro_kwide
+    v = next(v for v in tool.VARIANTS if v.name == name)
+    inp = tool.device_inputs(dev, 8)
+    args = (inp["rays"], *(inp[t] for t in v.tables))
+    before = v.kernel.launches
+    k = v.kernel(*args)
+    p = v.plain(*args)
+    torch.cuda.synchronize()
+    assert v.kernel.launches == before + 1
+    assert k.shape == p.shape == (8, 8, 128)
+    if name == "f_mxu128":
+        close = torch.isclose(k, p, rtol=micro_prims.MXU_RTOL,
+                              atol=micro_prims.MXU_ATOL)
+        assert float(close.float().mean()) >= micro_prims.MXU_AGREE
+    else:
+        assert torch.equal(k, p)
+
+
+def test_micro_wrappers_reject_bad_inputs(dev):
+    from glome_tpu_torch import kernels
+    from glome_tpu_torch.tools import micro_kwide, micro_prims
+    inp = micro_prims.device_inputs(dev, 2)
+    rays, pf = inp["rays"], inp["pf"]
+    with pytest.raises(ValueError):
+        micro_prims.dense_fori(rays, pf.cpu())
+    with pytest.raises(ValueError):
+        micro_prims.mxu128(rays, inp["pf_lane"][:, :4].contiguous())
+    with pytest.raises(TypeError):
+        micro_prims.gate16(rays, pf.double())
+    kin = micro_kwide.device_inputs(dev, 2)
+    with pytest.raises(ValueError):
+        micro_kwide.WALKS[1](kin["rays"], torch.zeros(6 * 1025, device=dev))
+    # the C entries themselves refuse a heap larger than the walk's stack
+    # and a K or NREAD with no build
+    lib = kernels.micro_kwide_lib()
+    out = torch.empty((2, 8, 128), device=dev)
+    rp, nfp, op = kin["rays"].data_ptr(), kin["nf"].data_ptr(), out.data_ptr()
+    for entry, args in (
+            ("glome_micro_walk", (nfp, micro_kwide.STACK + 1, 1)),
+            ("glome_micro_walk", (nfp, micro_kwide.M, 3)),
+            ("glome_micro_vread", (32,))):
+        err = getattr(lib, entry)(rp, 2, *args, op, None)
+        with pytest.raises(RuntimeError):
+            kernels.check_launch(lib, err, entry)
+
+
+def test_device_time_on_card(dev):
+    from glome_tpu_torch.tools.device_time import device_time
+    x = torch.ones(1 << 20, device=dev)
+    sec = device_time(lambda: x.mul_(1.0))
+    assert 0.0 < sec < 0.01
