@@ -26,7 +26,11 @@ micro_kwide), and checks them in phases:
      (megakernel.PLAIN) on the card, against the kernel frame and
      tests/golden/testscene_180x120_cpu.png under the same canaries;
   6. TestScene timing with CUDA events: the frame and one K1 launch
-     against one plain launch on the L0 batch;
+     against one plain launch on the L0 batch; then K1's cost per phase
+     on the L0 batch and the first shadow batch
+     (glome_tpu_torch.tools.kernel_ab.attribution: the launch timed with
+     phases >= k switched off in a copy of the descriptor table, for
+     every k, by tools.device_time);
   7. K2 against block_select_plain on the card: K2 launched on all
      1920x1080 L0 rays of mesh_scene(100_000) (intersect) and on all its
      shadow rays with cast_shadows=True, as the frame launches it, and
@@ -51,9 +55,10 @@ micro_kwide), and checks them in phases:
  11. bounds: each kernel's least time on the card for its measured
      launch -- the larger of its bytes (inputs read once, outputs written
      once) over 3.35 TB/s and the float32 work of the box and prim tests
-     its rays actually made (counted by a tallying build of the kernel)
-     over 67 TFLOP/s; and the tallies of each mesh through the other
-     kernel;
+     its rays actually made (counted by a tallying build of the kernel;
+     K1 also counts its clause work, point-in-node tests and member
+     inside tests) over 67 TFLOP/s; and the tallies of each mesh through
+     the other kernel;
  12. K4 against dense_select_plain on the card: K4 launched on every
      dense group of TestScene with all 345,600 L0 rays and all their
      shadow rays, held against the plain version on the whole batch; and
@@ -124,6 +129,10 @@ TF32_FLOPS = 495e12           # dense tensor-core TF32 (the same data sheet)
 # float32 operations of one test (csrc/walk.cuh box_live; prims.cuh
 # triangle_t and sphere_t, the cheapest prim: a lower bound for K1's mix)
 BOX_FLOPS, TRI_FLOPS, MIN_PRIM_FLOPS = 25, 60, 21
+# K1's clause work: a point-in-node test (csrc/mega_select.cu
+# point_in_node, six compares) and a member inside test (prims.cuh
+# inside_comp; the cheapest, a box's or a plane's, six operations)
+POINT_FLOPS, MIN_MEMBER_FLOPS = 6, 6
 
 
 def canaries(got, want):
@@ -195,10 +204,11 @@ def main():
     from glome_tpu_torch import mesh_kernel as MSH
     from glome_tpu_torch.compile import group_accel, group_device_params
     from glome_tpu_torch.io import quantize, read_png, write_png
-    from glome_tpu_torch.render import pixel_coords, primary_rays, tile_order
     from glome_tpu_torch.scenes import mesh_scene, test_scene
+    from glome_tpu_torch.tools import kernel_ab as KAB
     from glome_tpu_torch.tools import micro_kwide as MKW
     from glome_tpu_torch.tools import micro_prims as MPR
+    from glome_tpu_torch.tools.device_time import device_time
     from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
                                                    csg_rays, csg_scene,
                                                    phase_kinds_lights,
@@ -307,23 +317,22 @@ def main():
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
+    def clocks():
+        """The card's SM clock, its maximum, power draw and temperature
+        now, as nvidia-smi reads them."""
+        try:
+            return subprocess.run(
+                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                 "power.draw,temperature.gpu", "--format=csv,noheader"],
+                capture_output=True, text=True,
+                timeout=60).stdout.strip()
+        except (OSError, subprocess.TimeoutExpired) as e:
+            return f"not read ({e})"
+
     def l0_batch(cam, xres, yres):
         """Primary rays of an xres x yres frame in tile order, as the
         (8, N) table the tracer's first level intersects."""
-        ys, xs = np.mgrid[0:yres, 0:xres]
-        perm = tile_order(xres, yres)
-        xc, yc = pixel_coords(
-            xres, yres,
-            torch.as_tensor(xs.reshape(-1)[perm], dtype=torch.float32,
-                            device=dev),
-            torch.as_tensor(ys.reshape(-1)[perm], dtype=torch.float32,
-                            device=dev))
-        o, d = primary_rays(cam, xc, yc)
-        n = o.shape[0]
-        return torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                            d[:, 2],
-                            torch.full((n,), T.INFINITY, device=dev),
-                            torch.zeros(n, device=dev)]).contiguous()
+        return KAB.l0_batch(cam, xres, yres, dev)
 
     def subset(n):
         """SUBSET lane indices spread evenly over n lanes."""
@@ -476,6 +485,15 @@ def main():
         return ok and no_kernel and int(rplain.last_overflow.sum()) == 0
     phase("5 TestScene plain-path frame 180x120", p_plain_frame)
 
+    l0_shadow_cache = []
+
+    def l0_shadow():
+        """The shadow rays of TestScene's L0 hits (megakernel route), as
+        the tracer's first shadow batch."""
+        if not l0_shadow_cache:
+            l0_shadow_cache.append(KAB.l0_shadow(compiled, arrays, Q0))
+        return l0_shadow_cache[0]
+
     # -- 6. TestScene timing -----------------------------------------------
     def p_timing():
         renderer = T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg)
@@ -493,6 +511,18 @@ def main():
         entries["mega_select"].update(ms=kms, plain_ms=pms,
                                       rays=Q0.shape[1],
                                       plain_rays=Q0.shape[1])
+        # K1's cost per phase inside the full launch
+        for label, rays, shadow in (("L0 intersect", Q0, False),
+                                    ("first shadow", l0_shadow(), True)):
+            before = clocks()
+            rows, full = KAB.attribution(
+                lambda tabs: device_time(
+                    lambda: MK.mega_select(tabs, rays, shadow)) * 1e3,
+                tables)
+            KAB.print_attribution(
+                f"[{smi_line}] K1 per phase, TestScene {label} batch "
+                f"({rays.shape[1]} rays; tools.device_time; clocks before "
+                f"{before}, after {clocks()})", rows, full)
         return True
     phase("6 TestScene timing", p_timing)
 
@@ -743,18 +773,6 @@ def main():
         busy += cur_b - cur_a
         return wall, busy / 1e3, per
 
-    def clocks():
-        """The card's SM clock, its maximum, power draw and temperature
-        now, as nvidia-smi reads them."""
-        try:
-            return subprocess.run(
-                ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
-                 "power.draw,temperature.gpu", "--format=csv,noheader"],
-                capture_output=True, text=True,
-                timeout=60).stdout.strip()
-        except (OSError, subprocess.TimeoutExpired) as e:
-            return f"not read ({e})"
-
     def p_mesh_timing():
         n_rays = MESH_RES[0] * MESH_RES[1]
         print(f"  clocks at the start: {clocks()}")
@@ -848,20 +866,6 @@ def main():
                 f"{', transformed' if g.m_inv is not None else ''}"
                 f"{', constrained' if g.constraints else ''})")
 
-    l0_shadow_cache = []
-
-    def l0_shadow():
-        """The shadow rays of TestScene's L0 hits (megakernel route), as
-        the tracer's first shadow batch."""
-        if not l0_shadow_cache:
-            hit = MK.mega_intersect_table(compiled, arrays, Q0)
-            lpos, _lcol, lrad = _light_arrays(compiled, arrays,
-                                              compiled.lights)
-            _pre, _segs, sh = shadow_rays(hit, Q0[7], compiled.lights, lpos,
-                                          lrad)
-            l0_shadow_cache.append(sh.contiguous())
-        return l0_shadow_cache[0]
-
     groups_ts = route_groups(compiled)
     cone_gi = next(gi for si, gi, _k in groups_ts
                    if si == 0
@@ -872,33 +876,42 @@ def main():
 
     # -- 11. bounds ----------------------------------------------------------
     def bound(name, rays_bytes, out_bytes, table_bytes, tally, prim_flops):
+        """The kernel's bound from its tally: box and prim tests, and for
+        K1 (four rows) its point-in-node and member inside tests."""
         n_box = int(tally[0].sum())
         n_prim = int(tally[1].sum())
         nbytes = rays_bytes + out_bytes + table_bytes
         flops = n_box * BOX_FLOPS + n_prim * prim_flops
+        n = tally.shape[1]
+        clause = ""
+        if tally.shape[0] == 4:
+            n_point, n_member = int(tally[2].sum()), int(tally[3].sum())
+            flops += n_point * POINT_FLOPS + n_member * MIN_MEMBER_FLOPS
+            clause = (f", {n_point} point-in-node tests "
+                      f"({n_point / n:.2f}/ray), {n_member} member tests "
+                      f"({n_member / n:.2f}/ray)")
         t_bytes = nbytes / HBM_BPS * 1e3
         t_ops = flops / F32_FLOPS * 1e3
         e = entries[name]
         e["bound_ms"] = max(t_bytes, t_ops)
         e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        n = tally.shape[1]
         print(f"  {name}: {n} rays, {n_box} box tests "
               f"({n_box / n:.2f}/ray), {n_prim} prim tests "
-              f"({n_prim / n:.2f}/ray); {nbytes / 1e6:.3f} MB -> "
+              f"({n_prim / n:.2f}/ray){clause}; {nbytes / 1e6:.3f} MB -> "
               f"{1e3 * t_bytes:.2f} us, {flops / 1e9:.3f} GFLOP -> "
               f"{1e3 * t_ops:.2f} us; bound {1e3 * e['bound_ms']:.2f} us "
               f"({e['bound_by']})"
               + (f", measured {1e3 * e['ms']:.2f} us" if "ms" in e else ""))
 
     def p_bounds():
-        def tally_for(n):
-            return torch.zeros((2, n), dtype=torch.int32, device=dev)
+        def tally_for(n, rows=2):
+            return torch.zeros((rows, n), dtype=torch.int32, device=dev)
         n = Q0.shape[1]
-        tally = tally_for(n)
+        tally = tally_for(n, MK.TALLY_ROWS)
         MK.mega_select(tables, Q0, False, tally=tally)
         tbytes = sum(t.numel() * t.element_size() for t in
-                     (tables.pf, tables.pi, tables.nf, tables.ni, tables.bb,
-                      tables.phases))
+                     (tables.pf, tables.pi, tables.nf, tables.ni,
+                      tables.nodes, tables.bb, tables.pbox, tables.phases))
         # rays [o, d, seed, sid] in; t, wid, aux out
         bound("mega_select", 32 * n, 12 * n, tbytes, tally.cpu(),
               MIN_PRIM_FLOPS)

@@ -21,11 +21,31 @@
 //               useatex first-member tracking.
 // Shadow mode is any-hit: a ray stops as soon as it is blocked.
 //
-// What bounds it on the card: divergent per-ray walks and the latency of
-// L2-resident table reads (TestScene's plan tables total ~300 KB).  On
-// an H100 80GB HBM3 (700 W power limit) one launch over TestScene's
-// 345,600 primary rays takes 0.68 ms.  Warp-coherent traversal and
-// shared-memory staging of the tables are later work.
+// What bounds it on the card: the per-ray walks are chains of dependent
+// loads (a node's children decide the next node), so their latency, not
+// float32 work or bytes, sets the time; TestScene's plan tables (~300 KB)
+// stay in L2.  The design cuts what each step waits for:
+//   - a bvh2 tree is stored as child-pair records (megakernel.node_records):
+//     one 64-B, 16-B-aligned record per internal node holds both
+//     children's boxes and references, read as four float4 loads in one
+//     round per step;
+//   - the deferred subtrees wait on a short stack of packed (reference,
+//     near) pairs, MEGA_STACK_MAX deep (the wrapper refuses deeper trees),
+//     in shared memory (one column per thread; a per-thread local array
+//     was slower);
+//   - the descriptor table is staged in shared memory once per CTA (when
+//     it fits in MEGA_META_MAX ints), so the header fields every prim test
+//     reads come from there;
+//   - in a transformed group's leaves (TestScene's 1,024 cones, the
+//     phase that took half the launch) each prim's padded world box
+//     (megakernel.padded_prim_aabb, PlanTables.pbox) is slab-tested before
+//     the prim, whose test transforms the ray and solves a quadratic; the
+//     padding keeps every candidate inside its box, so the cull is
+//     conservative.
+// The walk takes the near child first (nL <= nR) and pops a deferred
+// subtree while it is nearer than the best t; the culls skip only prims
+// that hold no candidate, so the winners, ties included, are those of the
+// same walk without them.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -33,7 +53,14 @@
 #include "prims.cuh"
 #include "walk.cuh"
 
-#define MEGA_STACK_MAX 64
+// threads per CTA
+#define MEGA_THREADS 128
+// entries of the bvh2 walk's stack (megakernel.STACK_MAX)
+#define MEGA_STACK_MAX 32
+// descriptor ints staged in shared memory (larger tables stay in global)
+#define MEGA_META_MAX 4096
+// floats per child-pair record (megakernel.NODE_W)
+#define NODE_W 16
 #define GLOME_DELTA 1.0e-4f
 
 // descriptor layout: glome_tpu_torch.megakernel PH_* / CM_* / CV_*
@@ -65,6 +92,8 @@
 #define PH_NREG 24
 #define PH_ATEX 25
 #define PH_NFLD 26
+#define PH_NODE 27
+#define PH_PBOX 28
 
 #define CM_W 10
 #define CM_PTYPE 0
@@ -92,22 +121,40 @@ struct Tabs {
   const int* __restrict__ pi;
   const float* __restrict__ nf;
   const int* __restrict__ ni;
+  const float4* __restrict__ nodes;   // child-pair records
   const float* __restrict__ bb;
-  const int* __restrict__ meta;
+  const float4* __restrict__ pbox;    // padded prim boxes, 8 floats each
+  const int* __restrict__ meta;       // shared memory once staged
 };
 
+// the bvh2 walk's stack of deferred subtrees: packed (reference, near)
+struct Stack {
+  int2* e;   // this thread's column of the CTA's shared stack
+  __device__ __forceinline__ void put(int k, int ref, float near) {
+    e[k * MEGA_THREADS] = make_int2(ref, __float_as_int(near));
+  }
+  __device__ __forceinline__ int2 get(int k) const {
+    return e[k * MEGA_THREADS];
+  }
+};
+
+template <class Ray>
 __device__ __forceinline__ bool point_in_node(const float* b, float px,
-                                              float py, float pz) {
+                                              float py, float pz,
+                                              const Ray& ray) {
+  ray.count_point();
   return px >= b[0] && px <= b[3] && py >= b[1] && py <= b[4] &&
          pz >= b[2] && pz <= b[5];
 }
 
-// row r of a constraint member set contains the point (strictly)
+// row `row` of a constraint member set contains the point (strictly)
+template <class Ray>
 __device__ __forceinline__ bool member_row_inside(const Tabs& T,
-                                                  const int* cm, int r,
+                                                  const int* cm, int row,
                                                   float px, float py,
-                                                  float pz) {
-  const float* c = T.pf + cm[CM_PF] + r * cm[CM_F];
+                                                  float pz, const Ray& ray) {
+  ray.count_member();
+  const float* c = T.pf + cm[CM_PF] + row * cm[CM_F];
   float x = px, y = py, z = pz;
   if (cm[CM_INV]) {
     const float* mi = c + cm[CM_NFLD];
@@ -120,8 +167,9 @@ __device__ __forceinline__ bool member_row_inside(const Tabs& T,
 
 // any row of the member set contains the point; big sets walk their
 // stackless skip-link point BVH (rows stored in leaf order)
+template <class Ray>
 __device__ bool member_set_inside(const Tabs& T, const int* cm, float px,
-                                  float py, float pz) {
+                                  float py, float pz, const Ray& ray) {
   int M = cm[CM_M];
   int nn = cm[CM_NNODES];
   if (nn > 0) {
@@ -129,12 +177,12 @@ __device__ bool member_set_inside(const Tabs& T, const int* cm, float px,
     const int* ni = T.ni + cm[CM_NI];
     // skip links only move forward: at most nn steps
     for (int node = 0, steps = 0; node < nn && steps < nn; ++steps) {
-      if (point_in_node(nf + node * 6, px, py, pz)) {
+      if (point_in_node(nf + node * 6, px, py, pz, ray)) {
         int lc = ni[node * 3 + 2];
         int ls = ni[node * 3 + 1];
         for (int k = 0; k < lc; ++k) {
-          if (member_row_inside(T, cm, min(ls + k, M - 1), px, py, pz))
-            return true;
+          int row = min(ls + k, M - 1);
+          if (member_row_inside(T, cm, row, px, py, pz, ray)) return true;
         }
         node += 1;
       } else {
@@ -143,22 +191,25 @@ __device__ bool member_set_inside(const Tabs& T, const int* cm, float px,
     }
     return false;
   }
-  for (int r = 0; r < M; ++r)
-    if (member_row_inside(T, cm, r, px, py, pz)) return true;
+  for (int row = 0; row < M; ++row)
+    if (member_row_inside(T, cm, row, px, py, pz, ray)) return true;
   return false;
 }
 
 // conjunction of clauses at a point: IN(set) == positive for every clause
 // (Csg.hs:92-101); clause `skip` is left out (-1: none)
+template <class Ray>
 __device__ bool eval_conj(const Tabs& T, int cl_start, int cl_count,
-                          int skip, float px, float py, float pz) {
+                          int skip, float px, float py, float pz,
+                          const Ray& ray) {
   for (int c = 0; c < cl_count; ++c) {
     if (c == skip) continue;
     const int* cl = T.meta + cl_start + c * CL_W;
     bool positive = cl[0] != 0;
     bool inn = false;
     for (int m = 0; m < cl[2] && !inn; ++m)
-      inn = member_set_inside(T, T.meta + cl[1] + m * CM_W, px, py, pz);
+      inn = member_set_inside(T, T.meta + cl[1] + m * CM_W, px, py, pz,
+                              ray);
     if (inn != positive) return false;
   }
   return true;
@@ -169,8 +220,9 @@ __device__ bool eval_conj(const Tabs& T, int cl_start, int cl_count,
 // none.  Linear sets are in clause order, so their first hit is their
 // minimum; BVH sets are in leaf order and take the minimum over every
 // containing row; later sets hold higher ordinals.
+template <class Ray>
 __device__ int clause_first(const Tabs& T, const int* cl, float px, float py,
-                            float pz) {
+                            float pz, const Ray& ray) {
   int best_ord = INT_MAX;
   int best_gp = -1;
   for (int m = 0; m < cl[2] && best_gp < 0; ++m) {
@@ -182,15 +234,15 @@ __device__ int clause_first(const Tabs& T, const int* cl, float px, float py,
       const float* nf = T.nf + cm[CM_NF];
       const int* ni = T.ni + cm[CM_NI];
       for (int node = 0, steps = 0; node < nn && steps < nn; ++steps) {
-        if (point_in_node(nf + node * 6, px, py, pz)) {
+        if (point_in_node(nf + node * 6, px, py, pz, ray)) {
           int lc = ni[node * 3 + 2];
           int ls = ni[node * 3 + 1];
           for (int k = 0; k < lc; ++k) {
-            int r = min(ls + k, M - 1);
-            if (member_row_inside(T, cm, r, px, py, pz) &&
-                pir[2 * r + 1] < best_ord) {
-              best_ord = pir[2 * r + 1];
-              best_gp = pir[2 * r];
+            int row = min(ls + k, M - 1);
+            if (member_row_inside(T, cm, row, px, py, pz, ray) &&
+                pir[2 * row + 1] < best_ord) {
+              best_ord = pir[2 * row + 1];
+              best_gp = pir[2 * row];
             }
           }
           node += 1;
@@ -199,9 +251,9 @@ __device__ int clause_first(const Tabs& T, const int* cl, float px, float py,
         }
       }
     } else {
-      for (int r = 0; r < M; ++r) {
-        if (member_row_inside(T, cm, r, px, py, pz)) {
-          best_gp = pir[2 * r];
+      for (int row = 0; row < M; ++row) {
+        if (member_row_inside(T, cm, row, px, py, pz, ray)) {
+          best_gp = pir[2 * row];
           break;
         }
       }
@@ -224,10 +276,10 @@ __device__ __forceinline__ void prim_test(const Tabs& T, const int* ph,
   if (ncons > 0) {
     if (v0)
       v0 = eval_conj(T, ph[PH_CONS], ncons, -1, r.ox + r.dx * t0,
-                     r.oy + r.dy * t0, r.oz + r.dz * t0);
+                     r.oy + r.dy * t0, r.oz + r.dz * t0, r);
     if (v1)
       v1 = eval_conj(T, ph[PH_CONS], ncons, -1, r.ox + r.dx * t1,
-                     r.oy + r.dy * t1, r.oz + r.dz * t1);
+                     r.oy + r.dy * t1, r.oz + r.dz * t1, r);
   }
   float tc = v0 ? t0 : (v1 ? t1 : GLOME_INF);
   if (tc < bt) {
@@ -257,59 +309,77 @@ __device__ void run_dense(const Tabs& T, const int* ph, const Ray& r,
   }
 }
 
-// near-child-first walk over the strictly binary bvh2 tree
+// near-child-first walk over the strictly binary bvh2 tree's child-pair
+// records (megakernel.node_records).  A reference r names a node: r > 0
+// the record of an internal node, r < 0 a leaf (~r = leaf_start << 5 |
+// leaf_count), 0 none.  Record 0 holds the root's box and reference.
 template <class Ray>
 __device__ void run_bvh2(const Tabs& T, const int* ph, const Ray& r,
-                         int shadow, float seed, float& bt, int& bw) {
-  const float* nf = T.nf + ph[PH_NF];
-  const int* ni = T.ni + ph[PH_NI];
-  int stack[MEGA_STACK_MAX];
-  float snear[MEGA_STACK_MAX];
+                         int shadow, float seed, float& bt, int& bw,
+                         Stack& st) {
+  const float4* rec = T.nodes + (size_t)ph[PH_NODE] * (NODE_W / 4);
   int sp = 0;
-  float near;
-  int node = box_live(nf, r, bt, near) ? 0 : -1;
+  int node;
+  {
+    float4 a = __ldg(rec), b = __ldg(rec + 1), c = __ldg(rec + 3);
+    float near;
+    node = box_live6(a.x, a.y, a.z, a.w, b.x, b.y, r, bt, near)
+               ? __float_as_int(c.x)
+               : 0;
+  }
+  // transformed prims: each one's padded world box first (-1: none)
+  int pb = ph[PH_PBOX];
   // every node is visited at most once
   for (int steps = 0; steps <= ph[PH_NNODES]; ++steps) {
-    if (node >= 0) {
-      const int* nd = ni + node * 4;
-      int lc = nd[3];
-      if (lc > 0) {
-        int ls = nd[2];
-        for (int k = 0; k < lc; ++k) {
-          if (shadow && bt < seed) return;
-          if (prim_visible(T, ph, ls + k, shadow))
-            prim_test(T, ph, ls + k, r, bt, bw);
+    if (node < 0) {
+      int leaf = ~node;
+      int ls = leaf >> 5, lc = leaf & 31;
+      for (int k = 0; k < lc; ++k) {
+        if (shadow && bt < seed) return;
+        int q = ls + k;
+        if (!prim_visible(T, ph, q, shadow)) continue;
+        if (pb >= 0) {
+          const float4* b = T.pbox + 2 * (size_t)(pb + q);
+          float4 lo = __ldg(b), hi = __ldg(b + 1);
+          float near;
+          if (!box_live6(lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, r, bt, near))
+            continue;
         }
-        node = -1;
+        prim_test(T, ph, q, r, bt, bw);
+      }
+      node = 0;
+    } else if (node > 0) {
+      // one load round: both children's boxes and references
+      const float4* q = rec + (size_t)node * (NODE_W / 4);
+      float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2),
+             e = __ldg(q + 3);
+      float nL, nR;
+      bool hL = box_live6(a.x, a.y, a.z, a.w, b.x, b.y, r, bt, nL);
+      bool hR = box_live6(b.z, b.w, c.x, c.y, c.z, c.w, r, bt, nR);
+      int L = __float_as_int(e.x), R = __float_as_int(e.y);
+      if (hL && hR) {
+        bool lfirst = nL <= nR;
+        node = lfirst ? L : R;
+        if (sp < MEGA_STACK_MAX) {
+          st.put(sp, lfirst ? R : L, lfirst ? nR : nL);
+          ++sp;
+        }
       } else {
-        int L = nd[0], R = nd[1];
-        float nL, nR;
-        bool hL = box_live(nf + L * 6, r, bt, nL);
-        bool hR = box_live(nf + R * 6, r, bt, nR);
-        if (hL && hR) {
-          bool lfirst = nL <= nR;
-          node = lfirst ? L : R;
-          if (sp < MEGA_STACK_MAX) {
-            stack[sp] = lfirst ? R : L;
-            snear[sp] = lfirst ? nR : nL;
-            ++sp;
-          }
-        } else {
-          node = hL ? L : (hR ? R : -1);
-        }
+        node = hL ? L : (hR ? R : 0);
       }
     }
     if (shadow && bt < seed) return;
-    if (node < 0) {
+    if (node == 0) {
       // pop the next deferred subtree still nearer than the best hit
       while (sp > 0) {
         --sp;
-        if (snear[sp] < bt) {
-          node = stack[sp];
+        int2 top = st.get(sp);
+        if (__int_as_float(top.y) < bt) {
+          node = top.x;
           break;
         }
       }
-      if (node < 0) return;
+      if (node == 0) return;
     }
   }
 }
@@ -406,14 +476,14 @@ __device__ void run_deferred(const Tabs& T, const int* ph, const Ray& r,
           pz = r.oz + r.dz * tv;
     bool okc;
     if (which == 1 && atex >= 0) {
-      okc = eval_conj(T, ph[PH_CONS], ph[PH_NCONS], atex, px, py, pz);
+      okc = eval_conj(T, ph[PH_CONS], ph[PH_NCONS], atex, px, py, pz, r);
       if (okc) {
         first_gp = clause_first(T, T.meta + ph[PH_CONS] + atex * CL_W, px,
-                                py, pz);
+                                py, pz, r);
         okc = first_gp >= 0;
       }
     } else {
-      okc = eval_conj(T, ph[PH_CONS], ph[PH_NCONS], -1, px, py, pz);
+      okc = eval_conj(T, ph[PH_CONS], ph[PH_NCONS], -1, px, py, pz, r);
     }
     int nreg = ph[PH_NREG];
     if (okc && nreg > 0) {
@@ -424,17 +494,17 @@ __device__ void run_deferred(const Tabs& T, const int* ph, const Ray& r,
         const int* rg = T.meta + ph[PH_REG] + g * RG_W;
         um = um || eval_conj(T, rg[0], rg[1], -1, px - r.dx * GLOME_DELTA,
                              py - r.dy * GLOME_DELTA,
-                             pz - r.dz * GLOME_DELTA);
+                             pz - r.dz * GLOME_DELTA, r);
         up = up || eval_conj(T, rg[0], rg[1], -1, px + r.dx * GLOME_DELTA,
                              py + r.dy * GLOME_DELTA,
-                             pz + r.dz * GLOME_DELTA);
+                             pz + r.dz * GLOME_DELTA, r);
       }
       okc = um != up;
     }
     if (okc && which == 1 && neg) {
       // the ray must actually leave the clause set
       okc = !eval_conj(T, ph[PH_OWN], 1, -1, px + r.dx * GLOME_DELTA,
-                       py + r.dy * GLOME_DELTA, pz + r.dz * GLOME_DELTA);
+                       py + r.dy * GLOME_DELTA, pz + r.dz * GLOME_DELTA, r);
     }
     if (which == 0)
       v0 = okc;
@@ -449,14 +519,23 @@ __device__ void run_deferred(const Tabs& T, const int* ph, const Ray& r,
   }
 }
 
-// kTally: also write each ray's work tally (walk.cuh RayT)
+// kTally: also write each ray's work tally, four rows (walk.cuh RayT)
 template <bool kTally>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(MEGA_THREADS)
     mega_select_kernel(const float* __restrict__ rays, int n, Tabs T,
-                       int n_phases, int shadow, float* __restrict__ out_t,
-                       int* __restrict__ out_w, int* __restrict__ out_a,
-                       int* __restrict__ tally) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+                       int n_meta, int n_phases, int shadow,
+                       float* __restrict__ out_t, int* __restrict__ out_w,
+                       int* __restrict__ out_a, int* __restrict__ tally) {
+  extern __shared__ int smeta[];
+  if (n_meta <= MEGA_META_MAX) {
+    for (int k = threadIdx.x; k < n_meta; k += MEGA_THREADS)
+      smeta[k] = T.meta[k];
+    __syncthreads();
+    T.meta = smeta;
+  }
+  __shared__ int2 sstack[MEGA_STACK_MAX * MEGA_THREADS];
+  Stack st{sstack + threadIdx.x};
+  int i = blockIdx.x * MEGA_THREADS + threadIdx.x;
   if (i >= n) return;
   RayT<kTally> r = load_ray<kTally>(rays, n, i);
   float seed = rays[6 * n + i];
@@ -472,7 +551,7 @@ __global__ void __launch_bounds__(128)
       if (sid != (float)ph[PH_SI]) continue;
       switch (ph[PH_KIND]) {
         case KIND_DENSE: run_dense(T, ph, r, shadow, seed, bt, bw); break;
-        case KIND_BVH2: run_bvh2(T, ph, r, shadow, seed, bt, bw); break;
+        case KIND_BVH2: run_bvh2(T, ph, r, shadow, seed, bt, bw, st); break;
         case KIND_CONVEX: run_convex(T, ph, r, bt, bw); break;
         case KIND_DEFERRED: run_deferred(T, ph, r, bt, bw, ba); break;
         default: break;
@@ -484,24 +563,30 @@ __global__ void __launch_bounds__(128)
   out_w[i] = bw;
   out_a[i] = ba;
   r.store_tally(tally, n, i);
+  r.store_clause_tally(tally, n, i);
 }
 
 extern "C" int glome_mega_select(const float* rays, int n, const float* pf,
                                  const int* pi, const float* nf,
-                                 const int* ni, const float* bb,
-                                 const int* meta, int n_phases, int shadow,
-                                 float* out_t, int* out_w, int* out_a,
-                                 int* tally, void* stream) {
+                                 const int* ni, const float* nodes,
+                                 const float* bb, const float* pbox,
+                                 const int* meta, int n_meta, int n_phases,
+                                 int shadow, float* out_t, int* out_w,
+                                 int* out_a, int* tally, void* stream) {
   if (n <= 0) return 0;
-  Tabs T{pf, pi, nf, ni, bb, meta};
-  const int threads = 128;
-  int blocks = (n + threads - 1) / threads;
+  if ((((size_t)nodes | (size_t)pbox) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  Tabs T{pf, pi, nf, ni, (const float4*)nodes, bb, (const float4*)pbox,
+         meta};
+  int blocks = (n + MEGA_THREADS - 1) / MEGA_THREADS;
+  size_t smem = n_meta <= MEGA_META_MAX ? (size_t)n_meta * sizeof(int) : 0;
+  cudaStream_t s = (cudaStream_t)stream;
   if (tally)
-    mega_select_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        rays, n, T, n_phases, shadow, out_t, out_w, out_a, tally);
+    mega_select_kernel<true><<<blocks, MEGA_THREADS, smem, s>>>(
+        rays, n, T, n_meta, n_phases, shadow, out_t, out_w, out_a, tally);
   else
-    mega_select_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        rays, n, T, n_phases, shadow, out_t, out_w, out_a, tally);
+    mega_select_kernel<false><<<blocks, MEGA_THREADS, smem, s>>>(
+        rays, n, T, n_meta, n_phases, shadow, out_t, out_w, out_a, tally);
   return (int)cudaGetLastError();
 }
 

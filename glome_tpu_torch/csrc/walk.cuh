@@ -1,5 +1,6 @@
 // Per-ray pieces shared by the select kernels (K1 mega_select.cu, K2
-// block_select.cu, K3 mesh_block_select.cu): the ray record, the AABB
+// block_select.cu, K3 mesh_block_select.cu, K4 dense_select.cu, K5
+// bvh_select.cu): the ray record, the AABB
 // slab test of a BVH walk and the world-space candidate distances of one
 // (optionally instance-transformed) prim row.  The plain torch versions
 // (glome_tpu_torch/megakernel.py _candidates, block_kernel.py,
@@ -18,26 +19,39 @@ struct RayCore {
 };
 
 // The ray record.  RayT<true> also tallies its walk's work (box tests,
-// prim candidate tests) for a launch that asks for it; every other launch
-// runs RayT<false>, whose counting compiles to nothing.  The helpers below
-// and the kernels' walks take the record's type as a template parameter.
+// prim candidate tests; K1 also its clause work: point-in-node tests of
+// member-set point BVHs and member inside tests) for a launch that asks
+// for it; every other launch runs RayT<false>, whose counting compiles to
+// nothing.  The helpers below and the kernels' walks take the record's
+// type as a template parameter.
 template <bool kTally>
 struct RayT : RayCore {
   __device__ __forceinline__ void count_box() const {}
   __device__ __forceinline__ void count_prim() const {}
+  __device__ __forceinline__ void count_point() const {}
+  __device__ __forceinline__ void count_member() const {}
   __device__ __forceinline__ void store_tally(int*, int, int) const {}
+  __device__ __forceinline__ void store_clause_tally(int*, int, int) const {}
 };
 
 template <>
 struct RayT<true> : RayCore {
-  mutable int n_box = 0, n_prim = 0;
+  mutable int n_box = 0, n_prim = 0, n_point = 0, n_member = 0;
   __device__ __forceinline__ void count_box() const { ++n_box; }
   __device__ __forceinline__ void count_prim() const { ++n_prim; }
+  __device__ __forceinline__ void count_point() const { ++n_point; }
+  __device__ __forceinline__ void count_member() const { ++n_member; }
   // tally[i] = box tests, tally[n + i] = prim tests of ray i
   __device__ __forceinline__ void store_tally(int* __restrict__ tally, int n,
                                               int i) const {
     tally[i] = n_box;
     tally[n + i] = n_prim;
+  }
+  // tally[2n + i] = point-in-node tests, tally[3n + i] = member tests
+  __device__ __forceinline__ void store_clause_tally(int* __restrict__ tally,
+                                                     int n, int i) const {
+    tally[2 * n + i] = n_point;
+    tally[3 * n + i] = n_member;
   }
 };
 
@@ -83,18 +97,28 @@ __device__ __forceinline__ void prim_candidates(int ptype, const float* prm,
   if (fabsf(t1) < GLOME_INF) t1 *= ils;
 }
 
-// slab test of an AABB (bmin xyz, bmax xyz) against the ray and a t limit
+// slab test of an AABB (x0, y0, z0) - (x1, y1, z1) against the ray and a
+// t limit
 template <class Ray>
-__device__ __forceinline__ bool box_live(const float* b, const Ray& r,
-                                         float lim, float& near) {
+__device__ __forceinline__ bool box_live6(float x0, float y0, float z0,
+                                          float x1, float y1, float z1,
+                                          const Ray& r, float lim,
+                                          float& near) {
   r.count_box();
-  float t1x = (b[0] - r.ox) * r.ivx, t2x = (b[3] - r.ox) * r.ivx;
-  float t1y = (b[1] - r.oy) * r.ivy, t2y = (b[4] - r.oy) * r.ivy;
-  float t1z = (b[2] - r.oz) * r.ivz, t2z = (b[5] - r.oz) * r.ivz;
+  float t1x = (x0 - r.ox) * r.ivx, t2x = (x1 - r.ox) * r.ivx;
+  float t1y = (y0 - r.oy) * r.ivy, t2y = (y1 - r.oy) * r.ivy;
+  float t1z = (z0 - r.oz) * r.ivz, t2z = (z1 - r.oz) * r.ivz;
   near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
   float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
                     fmaxf(t1z, t2z));
   return (near <= far) && (far > 0.0f) && (near < lim);
+}
+
+// the same for a box stored as (bmin xyz, bmax xyz)
+template <class Ray>
+__device__ __forceinline__ bool box_live(const float* b, const Ray& r,
+                                         float lim, float& near) {
+  return box_live6(b[0], b[1], b[2], b[3], b[4], b[5], r, lim, near);
 }
 
 extern "C" const char* glome_cuda_error_name(int err) {

@@ -13,6 +13,8 @@ differentiably.
   - FIELDS, prim_aabb (shared with megakernel), pack_params_T,
     pack_params_rows, block_aabbs, pack_constraints: the host packers of
     pallas_kernels.py, on the scene's tensors;
+  - cull_aabbs: K4's cull table (padded per-sub-block and per-prim
+    world boxes; block_aabbs' per-block boxes are the TPU kernel's);
   - encode_constraints: a group's inline constraints as the descriptor
     and flat member rows of csrc/cons.cuh (block_kernel.encode_cons's
     format, any number of rows);
@@ -34,15 +36,17 @@ import torch
 from .block_kernel import cons_ok, encode_cons
 from .config import INFINITY
 from .megakernel import (FIELDS, PTYPE_CODE, _PLAIN_BUDGET, _candidates,
-                         _field_width, prim_aabb)
+                         _field_width, padded_prim_aabb, prim_aabb)
 
 INF = INFINITY
 
 # prims per block of K4 and rays per CTA (DENSE_BP in
 # csrc/dense_select.cu).  The TPU kernel's block was one 128-lane row of
-# prims; on the card a block is what a CTA stages in shared memory at
-# once, and what one AABB of block_aabbs bounds.
+# prims (one AABB of block_aabbs); on the card a block is what a CTA
+# stages in shared memory at once.
 BP = 128
+# prims per K4 sub-block (DENSE_SUB): one box of cull_aabbs each
+SUB = 32
 # the widest K4 row (DENSE_FX_MAX): trianglenorm's 18 fields + 12
 # inverse-matrix floats
 FX_MAX = 30
@@ -69,8 +73,9 @@ def pack_params_rows(ptype: str, params: dict) -> torch.Tensor:
 
 
 def block_aabbs(ptype: str, params: dict, m_fwd, P: int, bp: int = BP):
-    """Per-bp-prim-block AABB table (n_j, 8) float32 [bmin, bmax, 0, 0]
-    for K4's cull, or None when the type is unbounded (plane)."""
+    """Per-bp-prim-block AABB table (n_j, 8) float32 [bmin, bmax, 0, 0],
+    the cull of glome_tpu's dense_intersect (and of K4 before
+    cull_aabbs), or None when the type is unbounded (plane)."""
     ab = prim_aabb(ptype, params, m_fwd)
     if ab is None:
         return None
@@ -88,6 +93,27 @@ def block_aabbs(ptype: str, params: dict, m_fwd, P: int, bp: int = BP):
     bhi = bmax.reshape(n_j, bp, 3).amax(dim=1)
     return torch.cat([blo, bhi, torch.zeros((n_j, 2), dtype=blo.dtype,
                                             device=blo.device)],
+                     dim=-1).to(torch.float32).contiguous()
+
+
+def cull_aabbs(ptype: str, params: dict, m_fwd, P: int):
+    """K4's cull table, (ceil(P / SUB) + P, 8) float32 rows [bmin, bmax,
+    0, 0]: each SUB-prim sub-block's box (the union of its prims' boxes),
+    then each prim's padded world box (megakernel.padded_prim_aabb); None
+    when the type is unbounded (plane)."""
+    boxes = padded_prim_aabb(ptype, params, m_fwd)
+    if boxes is None:
+        return None
+    bmin, bmax = boxes[:, 0:3], boxes[:, 3:6]
+    n_sub = (P + SUB - 1) // SUB
+    fill = n_sub * SUB - P
+    smin = torch.cat([bmin, bmin.new_full((fill, 3), float("inf"))])
+    smax = torch.cat([bmax, bmax.new_full((fill, 3), float("-inf"))])
+    rows = torch.cat([
+        torch.cat([smin.reshape(n_sub, SUB, 3).amin(dim=1),
+                   smax.reshape(n_sub, SUB, 3).amax(dim=1)], dim=-1),
+        torch.cat([bmin, bmax], dim=-1)])
+    return torch.cat([rows, rows.new_zeros((rows.shape[0], 2))],
                      dim=-1).to(torch.float32).contiguous()
 
 
@@ -193,7 +219,8 @@ def dense_select(ptype: str, params_T, m_inv, vis, cons: Constraints, rays,
     or None; vis: (P,) float32 0/1; cons: encode_constraints of the
     group; rays: (>=6, N) float32 component planes (rows 0-5 = o, d);
     seed: (N,) float32 start best t (<= 0 = dead lane); block_bbox: the
-    (n_j, 8) block_aabbs table or None (no cull).  Returns (t, local):
+    group's cull table (cull_aabbs, (ceil(P / SUB) + P, 8)) or None (no
+    cull).  Returns (t, local):
     t == seed and local == -1 where nothing is nearer.  shadow=True is
     any-hit: a blocked ray has t < seed and local >= 0, but t is the
     first blocker found, not the nearest.
@@ -214,10 +241,10 @@ def dense_select(ptype: str, params_T, m_inv, vis, cons: Constraints, rays,
             m_inv is not None and m_inv.numel() != 12 * P):
         raise ValueError(f"dense_select: params_T {tuple(params_T.shape)}, "
                          f"vis {tuple(vis.shape)} for {nfld} {ptype} fields")
-    if block_bbox is not None and tuple(block_bbox.shape) != (
-            (P + BP - 1) // BP, 8):
-        raise ValueError(f"block_bbox must be ({(P + BP - 1) // BP}, 8), "
-                         f"got {tuple(block_bbox.shape)}")
+    n_cull = (P + SUB - 1) // SUB + P
+    if block_bbox is not None and tuple(block_bbox.shape) != (n_cull, 8):
+        raise ValueError(f"block_bbox must be the ({n_cull}, 8) cull_aabbs "
+                         f"table, got {tuple(block_bbox.shape)}")
     _check_common(rays, seed, cons,
                   {"params_T": params_T, "m_inv": m_inv, "vis": vis,
                    "block_bbox": block_bbox})
@@ -361,8 +388,8 @@ def dense_select_plain(ptype: str, params_T, m_inv, vis, cons: Constraints,
                        rays, seed, block_bbox=None, shadow: bool = False):
     """Plain torch version of dense_select: every live ray against every
     prim of the group in local order (the semantics of glome_tpu's
-    intersect.brute_scan without its scan); the kernel's block AABBs only
-    cull, so block_bbox is not read.  The first prim reaching the minimum
+    intersect.brute_scan without its scan); the kernel's boxes only cull,
+    so block_bbox is not read.  The first prim reaching the minimum
     wins, as in the kernel, so the two agree except on exact ties.
     Shadow mode finds the nearest blocker; only t < seed is meaningful
     there, as in the kernel."""

@@ -397,7 +397,7 @@ def _rays(o, d):
 
 def dense_args(sc, garrs, gi, shadow: bool, device):
     """K4's inputs for group gi, as dense_pass packs them: ((ptype,
-    params_T, m_inv, vis, constraints), block_bbox), detached."""
+    params_T, m_inv, vis, constraints), cull table), detached."""
     g = sc.groups[gi]
     ga = garrs[gi]
     params = {k: v.detach() for k, v in ga.items()
@@ -405,8 +405,8 @@ def dense_args(sc, garrs, gi, shadow: bool, device):
     minv = ga.get("m_inv")
     m_fwd = ga.get("m_fwd")
     cons = GK.encode_constraints(GK.pack_constraints(sc, garrs, g), device)
-    bbox = GK.block_aabbs(g.ptype, params,
-                          None if m_fwd is None else m_fwd.detach(), g.size)
+    bbox = GK.cull_aabbs(g.ptype, params,
+                         None if m_fwd is None else m_fwd.detach(), g.size)
     return ((g.ptype, GK.pack_params_T(g.ptype, params),
              None if minv is None else minv.detach().to(torch.float32),
              _vis(g, shadow, device), cons), bbox)

@@ -66,28 +66,37 @@ def nvcc_path() -> str:
     return path
 
 
-def build(sources, name: str) -> str:
-    """Compile sources[0] (the others are its headers) into
-    build/lib<name>_<hash>.so unless that file exists; returns its
-    path.  BUILD_INFO[path] records the build seconds and log."""
+def build(sources, name: str, csrc: str = CSRC) -> str:
+    """Compile sources[0] (the others are its headers, all in `csrc`)
+    into build/lib<name>_<hash>.so unless that file exists; returns its
+    path.  BUILD_INFO[path] records the build seconds and the log (nvcc
+    and ptxas -v), which is also kept beside the library as .so.log."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for s in sources:
-        with open(os.path.join(CSRC, s), "rb") as f:
+        with open(os.path.join(csrc, s), "rb") as f:
             h.update(s.encode() + b"\0" + f.read())
     out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
     if os.path.exists(out):
-        BUILD_INFO.setdefault(out, {"seconds": 0.0, "log": "(cached)"})
+        if out not in BUILD_INFO:
+            log = "(cached)"
+            if os.path.exists(out + ".log"):
+                with open(out + ".log") as f:
+                    log = f.read()
+            BUILD_INFO[out] = {"seconds": 0.0, "log": log}
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-           os.path.join(CSRC, sources[0])]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", csrc, "-o", tmp,
+           os.path.join(csrc, sources[0])]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(log)
+    os.replace(f"{tmp}.log", out + ".log")
     os.replace(tmp, out)
     BUILD_INFO[out] = {"seconds": secs, "log": log}
     return out
@@ -109,8 +118,8 @@ _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 
 def _setup_mega(lib):
     lib.glome_mega_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _vp, _vp,
-                                      _vp, _i32, _i32, _vp, _vp, _vp, _vp,
-                                      _vp]
+                                      _vp, _vp, _vp, _i32, _i32, _i32, _vp,
+                                      _vp, _vp, _vp, _vp]
     lib.glome_mega_select.restype = _i32
     lib.glome_mega_stack_max.argtypes = []
     lib.glome_mega_stack_max.restype = _i32
@@ -145,13 +154,15 @@ def _setup_dense(lib):
                                        _i32, _i32, _i32, _i32, _vp, _vp,
                                        _i32, _vp, _vp, _vp, _vp]
     lib.glome_dense_select.restype = _i32
-    for fn in (lib.glome_dense_block, lib.glome_dense_fx_max):
+    for fn in (lib.glome_dense_block, lib.glome_dense_sub,
+               lib.glome_dense_fx_max):
         fn.argtypes = []
         fn.restype = _i32
-    from .group_kernels import BP, FX_MAX
-    if (lib.glome_dense_block(), lib.glome_dense_fx_max()) != (BP, FX_MAX):
-        raise RuntimeError("csrc/dense_select.cu DENSE_BP / DENSE_FX_MAX != "
-                           "group_kernels.BP / FX_MAX")
+    from .group_kernels import BP, FX_MAX, SUB
+    if (lib.glome_dense_block(), lib.glome_dense_sub(),
+            lib.glome_dense_fx_max()) != (BP, SUB, FX_MAX):
+        raise RuntimeError("csrc/dense_select.cu DENSE_BP / DENSE_SUB / "
+                           "DENSE_FX_MAX != group_kernels.BP / SUB / FX_MAX")
 
 
 def _setup_bvh(lib):
@@ -246,15 +257,15 @@ def check_launch(lib, err: int, what: str):
         raise RuntimeError(f"{what} launch failed: cudaError {err} ({name})")
 
 
-def check_tally(tally, rays):
-    """A work tally must be a contiguous (2, N) int32 tensor beside the
-    rays (or None)."""
+def check_tally(tally, rays, rows: int = 2):
+    """A work tally must be a contiguous (rows, N) int32 tensor beside
+    the rays (or None)."""
     if tally is None:
         return
     n = rays.shape[1]
-    if (tally.dtype != torch.int32 or tuple(tally.shape) != (2, n)
+    if (tally.dtype != torch.int32 or tuple(tally.shape) != (rows, n)
             or tally.device != rays.device or not tally.is_contiguous()):
-        raise ValueError(f"tally must be a contiguous (2, {n}) int32 "
+        raise ValueError(f"tally must be a contiguous ({rows}, {n}) int32 "
                          f"tensor on {rays.device}")
 
 

@@ -72,8 +72,15 @@ CONS_BVH_MIN = 48
 
 # per-thread traversal stack of the CUDA kernel (MEGA_STACK_MAX in
 # csrc/mega_select.cu); the near-first walk holds at most depth - 1
-# entries, and the wrapper raises for deeper trees
-STACK_MAX = 64
+# entries, and the wrapper raises for deeper trees (TestScene's deepest
+# bvh2 tree has depth 15)
+STACK_MAX = 32
+# floats per child-pair record of a bvh2 tree (NODE_W in
+# csrc/mega_select.cu): both children's boxes, then their references
+NODE_W = 16
+# rows of K1's work tally: box tests, prim tests, point-in-node tests of
+# member-set point BVHs, member inside tests
+TALLY_ROWS = 4
 
 # per-ptype parameter field order of one PF row (glome_tpu
 # pallas_kernels.FIELDS)
@@ -313,6 +320,28 @@ def prim_aabb(ptype: str, params: dict, m_fwd=None):
     return bmin, bmax
 
 
+# outward padding of the per-prim cull boxes of K1 and K4: PAD_REL of the
+# box's largest |coordinate| plus PAD_ABS, so that float32 rounding (of
+# the forward transform, of the candidate t, of the slab test) never
+# culls a candidate the plain versions keep; a cone's clip caps, a box's
+# faces and a sphere's poles lie exactly on their box's faces
+PAD_REL, PAD_ABS = 1e-4, 1e-4
+
+
+def padded_prim_aabb(ptype: str, params: dict, m_fwd=None):
+    """(P, 6) float64 world boxes [bmin, bmax] of a group's prims, padded
+    outward by PAD_REL / PAD_ABS, or None (plane).  Computed in float64
+    from prim_aabb, so no TF32 product enters them."""
+    ab = prim_aabb(ptype, {k: v.to(torch.float64) for k, v in params.items()},
+                   None if m_fwd is None else m_fwd.to(torch.float64))
+    if ab is None:
+        return None
+    bmin, bmax = ab
+    pad = (PAD_REL * torch.maximum(bmin.abs(), bmax.abs()).amax(
+        dim=1, keepdim=True) + PAD_ABS)
+    return torch.cat([bmin - pad, bmax + pad], dim=-1)
+
+
 
 # --- static plan ------------------------------------------------------------
 
@@ -412,6 +441,10 @@ class MegaPlan:
     # ported yet (see BLOCK_MIN)
     blocks: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
+    # [(phase index, si, gi, PF row order)] of the bvh2 phases whose
+    # leaves test each prim's padded world box before the prim (the
+    # transformed groups: their prim test transforms the ray first)
+    pbox_spec: List[tuple] = dataclasses.field(default_factory=list)
 
 
 def _aabb_overlap(a, b, eps=1e-6):
@@ -467,6 +500,7 @@ def build_plan(compiled) -> MegaPlan:
     phases: List[Phase] = []
     external: List[Tuple[int, int]] = []
     blocks: List[Tuple[int, int]] = []
+    pbox_spec: List[tuple] = []
     prim_base: Dict[Tuple[int, int], Tuple[int, int]] = {}
     tex_all, tag_all, ser_all, neg_all, csg_all, sc_of = [], [], [], [], [], []
     ltex_all, ltag_all, atex_all = [], [], []
@@ -679,6 +713,8 @@ def build_plan(compiled) -> MegaPlan:
                     axis=1).reshape(-1))
                 nf_off += nf_parts[-1].shape[0]
                 ni_off += ni_parts[-1].shape[0]
+                if g.m_inv is not None:
+                    pbox_spec.append((len(phases), si, gi, perm))
                 phases.append(Phase(
                     "bvh2", si, gi=gi, ptype=g.ptype,
                     transformed=g.m_inv is not None, P=g.size,
@@ -787,7 +823,7 @@ def build_plan(compiled) -> MegaPlan:
                   else np.zeros(0, bool)),
         warp_groups=frozenset(warp_groups),
         combos=combos, cid_all=cid_all, row_all=row_all,
-        external=external, blocks=blocks)
+        external=external, blocks=blocks, pbox_spec=pbox_spec)
 
 
 def get_plan(compiled) -> MegaPlan:
@@ -812,7 +848,7 @@ PH_W = 32
 (PH_KIND, PH_SI, PH_PTYPE, PH_XF, PH_P, PH_PF, PH_F, PH_PI, PH_VIS0,
  PH_VIS1, PH_VISMIX, PH_BB, PH_NF, PH_NI, PH_NNODES, PH_DEPTH, PH_CONS,
  PH_NCONS, PH_MEM, PH_NMEM, PH_GPRIM, PH_NEG, PH_OWN, PH_REG, PH_NREG,
- PH_ATEX, PH_NFLD) = range(27)
+ PH_ATEX, PH_NFLD, PH_NODE, PH_PBOX) = range(29)
 KIND_CODE = {"dense": 0, "bvh2": 1, "convex": 2, "deferred": 3}
 CM_W = 10   # ptype, pf_base, F, M, has_inv, pi_base, nf_base, ni_base,
 #             n_nodes, nfld
@@ -821,12 +857,70 @@ RG_W = 2    # cl_start, cl_count
 CV_W = 6    # ptype, pf offset, F, has_inv, gprim, nfld
 
 
+def node_records(plan: MegaPlan):
+    """The bvh2 trees as child-pair records, the table csrc/mega_select.cu
+    walks: (float32 (R * NODE_W,) table, {phase index: first record}),
+    cached on the plan.  Record 0 of a tree holds its root's box in the
+    left slot and the root's reference at float 12; then each internal
+    node (in node order) gets one record: the left and the right child's
+    boxes (bmin xyz, bmax xyz each, floats 0-11) and their references
+    (floats 12 and 13, int32 bits).  A reference r > 0 is the record of an
+    internal node within the tree, r < 0 a leaf with ~r = leaf_start << 5
+    | leaf_count.  plan.nf / plan.ni keep the per-node layout."""
+    cached = getattr(plan, "_node_tab", None)
+    if cached is not None:
+        return cached
+    parts, bases, off = [], {}, 0
+    for i, ph in enumerate(plan.phases):
+        if ph.kind != "bvh2":
+            continue
+        M = ph.n_nodes
+        box = plan.nf[ph.nf_base:ph.nf_base + 6 * M].reshape(M, 6)
+        ni = plan.ni[ph.ni_base:ph.ni_base + 4 * M].reshape(M, 4)
+        leaf = ni[:, 3] > 0
+        if np.any(ni[leaf, 3] >= 32) or np.any(ni[leaf, 2] >= 1 << 26):
+            raise ValueError("a bvh2 leaf too big for a packed reference")
+        inner = np.nonzero(~leaf)[0]
+        rec_of = np.zeros(M, np.int64)
+        rec_of[inner] = 1 + np.arange(len(inner))
+        packed = (ni[:, 2].astype(np.int64) << 5) | ni[:, 3]
+        ref = np.where(leaf, ~packed, rec_of).astype(np.int32)
+        recs = np.zeros((1 + len(inner), NODE_W), np.float32)
+        words = recs.view(np.int32)
+        recs[0, 0:6] = box[0]
+        words[0, 12] = ref[0]
+        left, right = ni[inner, 0], ni[inner, 1]
+        recs[1:, 0:6] = box[left]
+        recs[1:, 6:12] = box[right]
+        words[1:, 12] = ref[left]
+        words[1:, 13] = ref[right]
+        bases[i] = off
+        off += len(recs)
+        parts.append(recs.reshape(-1))
+    tab = (np.concatenate(parts) if parts
+           else np.zeros(NODE_W, np.float32))
+    plan._node_tab = (tab, bases)
+    return plan._node_tab
+
+
+def pbox_bases(plan: MegaPlan):
+    """{phase index: first row of its prims' boxes in PlanTables.pbox}
+    for the phases of plan.pbox_spec (rows in PF row order)."""
+    bases, off = {}, 0
+    for i, _si, _gi, _perm in plan.pbox_spec:
+        bases[i] = off
+        off += plan.phases[i].P
+    return bases
+
+
 def encode_phases(plan: MegaPlan) -> np.ndarray:
     """The plan as one flat int32 descriptor table (cached on the plan,
     like finalize's _meta_tab)."""
     tab = getattr(plan, "_phase_tab", None)
     if tab is not None:
         return tab
+    node_base = node_records(plan)[1]
+    pbox_base = pbox_bases(plan)
     for ph in plan.phases:
         if ph.kind not in KIND_CODE:
             raise NotImplementedError(f"phase kind {ph.kind!r}")
@@ -861,6 +955,8 @@ def encode_phases(plan: MegaPlan) -> np.ndarray:
         h[PH_BB] = ph.bb_idx
         h[PH_NF], h[PH_NI] = ph.nf_base, ph.ni_base
         h[PH_NNODES], h[PH_DEPTH] = ph.n_nodes, ph.depth
+        h[PH_NODE] = node_base.get(i, 0)
+        h[PH_PBOX] = pbox_base.get(i, -1)
         h[PH_CONS], h[PH_NCONS] = conj(ph.cons) if ph.cons else (0, 0)
         if ph.members:
             h[PH_MEM], h[PH_NMEM] = len(out), len(ph.members)
@@ -888,27 +984,33 @@ def encode_phases(plan: MegaPlan) -> np.ndarray:
 @dataclasses.dataclass
 class PlanTables:
     """Everything mega_select reads, on one device: PF f32 (prim rows),
-    PI i32 ([gprim, flags|ordinal] per row), NF f32 / NI i32 (BVH node
-    tables), BB f32 (n_dense, 8) dense-phase AABBs and the phase
-    descriptor table."""
+    PI i32 ([gprim, flags|ordinal] per row), NF f32 / NI i32 (per-node
+    BVH tables: the member sets' point BVHs, and the bvh2 trees the plain
+    version and the tests read), NODES f32 (the bvh2 trees' child-pair
+    records, node_records), BB f32 (n_dense, 8) dense-phase AABBs, PBOX
+    f32 (n, 8) the padded world boxes of plan.pbox_spec's prims
+    [bmin, bmax, 0, 0] and the phase descriptor table."""
     plan: MegaPlan
     pf: torch.Tensor
     pi: torch.Tensor
     nf: torch.Tensor
     ni: torch.Tensor
+    nodes: torch.Tensor
     bb: torch.Tensor
+    pbox: torch.Tensor
     phases: torch.Tensor
 
 
 def _static_tables(plan: MegaPlan, device):
-    """Device copies of the plan's static PI/NF/NI/descriptor tables,
-    cached on the plan per device."""
+    """Device copies of the plan's static PI/NF/NI/NODES/descriptor
+    tables, cached on the plan per device."""
     cache = plan.__dict__.setdefault("_dev_tabs", {})
     key = str(device)
     if key not in cache:
         cache[key] = tuple(
             torch.as_tensor(a, device=device) for a in
-            (plan.pi, plan.nf, plan.ni, encode_phases(plan)))
+            (plan.pi, plan.nf, plan.ni, node_records(plan)[0],
+             encode_phases(plan)))
     return cache[key]
 
 
@@ -956,9 +1058,23 @@ def pack_tables(plan: MegaPlan, compiled, arrays) -> PlanTables:
              torch.zeros(2, dtype=ab[0].dtype, device=device)]))
     bb = (torch.stack(bb_rows).to(torch.float32) if bb_rows
           else torch.zeros((1, 8), dtype=torch.float32, device=device))
-    pi, nf, ni, phases = _static_tables(plan, device)
-    return PlanTables(plan, pf.contiguous(), pi, nf, ni, bb.contiguous(),
-                      phases)
+    pbox_rows = []
+    for _i, si, gi, perm in plan.pbox_spec:
+        g = compiled.scenes[si].groups[gi]
+        ga = {k: v.detach() for k, v in
+              group_device_params(g, arrays["scenes"][si][gi]).items()}
+        boxes = padded_prim_aabb(
+            g.ptype, {k: v for k, v in ga.items()
+                      if k not in ("m_inv", "m_fwd")}, ga.get("m_fwd"))
+        boxes = boxes[torch.as_tensor(perm, dtype=torch.int64,
+                                      device=device)]
+        pbox_rows.append(torch.cat([boxes, boxes.new_zeros((len(perm), 2))],
+                                   dim=-1))
+    pbox = (torch.cat(pbox_rows).to(torch.float32) if pbox_rows
+            else torch.zeros((1, 8), dtype=torch.float32, device=device))
+    pi, nf, ni, nodes, phases = _static_tables(plan, device)
+    return PlanTables(plan, pf.contiguous(), pi, nf, ni, nodes,
+                      bb.contiguous(), pbox.contiguous(), phases)
 
 
 # --- the kernel K1 ----------------------------------------------------------
@@ -967,7 +1083,7 @@ def _check_launch(tables: PlanTables, rays):
     dev = rays.device
     if rays.dim() != 2 or rays.shape[0] != 8:
         raise ValueError(f"rays must be (8, N), got {tuple(rays.shape)}")
-    for name in ("pf", "nf", "bb"):
+    for name in ("pf", "nf", "nodes", "bb", "pbox"):
         t = getattr(tables, name)
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -977,7 +1093,7 @@ def _check_launch(tables: PlanTables, rays):
             raise TypeError(f"{name} must be int32, got {t.dtype}")
     if rays.dtype != torch.float32:
         raise TypeError(f"rays must be float32, got {rays.dtype}")
-    for name in ("pf", "pi", "nf", "ni", "bb", "phases"):
+    for name in ("pf", "pi", "nf", "ni", "nodes", "bb", "pbox", "phases"):
         t = getattr(tables, name)
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, rays on {dev}")
@@ -1005,17 +1121,18 @@ def mega_select(tables: PlanTables, rays, shadow: bool = False,
     variant (only wid >= 0 is meaningful).
 
     A CUDA tensor launches csrc/mega_select.cu on the current stream; a
-    CPU tensor runs mega_select_plain.  `tally`, a (2, N) int32 CUDA
-    tensor, receives each ray's box tests and prim tests (a measurement
-    of the work the rays' walks need); only such a launch runs the
-    kernel's counting build."""
+    CPU tensor runs mega_select_plain.  `tally`, a (TALLY_ROWS, N) int32
+    CUDA tensor, receives each ray's box tests, prim tests, point-in-node
+    tests and member inside tests of the clause checks (a measurement of
+    the work the rays' walks need); only such a launch runs the kernel's
+    counting build."""
     if rays.device.type == "cpu" and tally is None:
         return mega_select_plain(tables, rays, shadow)
     if rays.device.type != "cuda":
         raise ValueError(f"mega_select: unsupported device {rays.device}")
     from . import kernels
     _check_launch(tables, rays)
-    kernels.check_tally(tally, rays)
+    kernels.check_tally(tally, rays, TALLY_ROWS)
     n = rays.shape[1]
     t = torch.empty(n, dtype=torch.float32, device=rays.device)
     wid = torch.empty(n, dtype=torch.int32, device=rays.device)
@@ -1028,7 +1145,9 @@ def mega_select(tables: PlanTables, rays, shadow: bool = False,
         err = lib.glome_mega_select(
             rays.data_ptr(), n, tables.pf.data_ptr(), tables.pi.data_ptr(),
             tables.nf.data_ptr(), tables.ni.data_ptr(),
-            tables.bb.data_ptr(), tables.phases.data_ptr(),
+            tables.nodes.data_ptr(), tables.bb.data_ptr(),
+            tables.pbox.data_ptr(), tables.phases.data_ptr(),
+            tables.phases.numel(),
             len(tables.plan.phases), int(bool(shadow)),
             t.data_ptr(), wid.data_ptr(), aux.data_ptr(),
             kernels.tally_ptr(tally), ctypes.c_void_p(stream))

@@ -1,10 +1,13 @@
 """K1-K5, M1 and M2 on the card: each CUDA kernel against its plain
-version, and the wrappers' contracts.  Every test needs a CUDA device and skips without
-one.  The card's machine has no JAX, so run these without the suite's
-conftest (which configures JAX):
+version, the wrappers' contracts, and K1's and K4's work tallies.  Every
+test needs a CUDA device and skips without one.  The card's machine has
+no JAX, so run these without the suite's conftest (which configures
+JAX):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -69,6 +72,24 @@ def test_kernel_matches_plain(dev, scene, shadow):
         assert torch.equal(ak, ap)
 
 
+def test_clause_work_is_tallied(dev):
+    """K1's tally counts the clause work of the constrained check scene
+    (inline constraints, deferred difference-B prims): member inside
+    tests (row 3) and point-in-node tests (row 2), beside the box and
+    prim tests."""
+    tables = _tables(dev)
+    rays = _rays(dev, 8192, T.INFINITY, 0)
+    tally = torch.zeros((MK.TALLY_ROWS, rays.shape[1]), dtype=torch.int32,
+                        device=dev)
+    MK.mega_select(tables, rays, False, tally=tally)
+    per_ray = (tally.sum(dim=1).double() / rays.shape[1]).tolist()
+    print(f"box / prim / point / member tests per ray: {per_ray}")
+    assert per_ray[0] > 0 and per_ray[1] > 0
+    assert per_ray[3] > 0
+    with pytest.raises(ValueError):
+        MK.mega_select(tables, rays, False, tally=tally[:2].contiguous())
+
+
 def test_launch_count(dev, tables):
     rays = _rays(dev, 1024, T.INFINITY, 0)
     before = MK.mega_select.launches
@@ -86,8 +107,7 @@ def test_wrapper_rejects_bad_inputs(dev, tables):
         MK.mega_select(tables, rays.double(), False)
     with pytest.raises(ValueError):
         MK.mega_select(tables, rays.t().contiguous().t(), False)
-    cpu = MK.PlanTables(tables.plan, tables.pf.cpu(), tables.pi, tables.nf,
-                        tables.ni, tables.bb, tables.phases)
+    cpu = dataclasses.replace(tables, pf=tables.pf.cpu())
     with pytest.raises(ValueError):
         MK.mega_select(cpu, rays, False)
 
@@ -246,9 +266,9 @@ def test_dense_kernel_matches_plain(dev, case, shadow):
     g = sc.groups[gi]
     args = _dense_inputs(sc, gi, garrs, shadow, dev)
     ga = garrs[gi]
-    bbox = GK.block_aabbs(g.ptype, {k: v for k, v in ga.items()
-                                    if k not in ("m_inv", "m_fwd")},
-                          ga.get("m_fwd"), g.size)
+    bbox = GK.cull_aabbs(g.ptype, {k: v for k, v in ga.items()
+                                   if k not in ("m_inv", "m_fwd")},
+                         ga.get("m_fwd"), g.size)
     rays, seed = _block_rays(dev, 8192, 7.0 if shadow else T.INFINITY,
                              5 if shadow else 4, 6.0)
     if case in ("cones", "planes"):
@@ -263,6 +283,31 @@ def test_dense_kernel_matches_plain(dev, case, shadow):
                               shadow=shadow)
     assert GK.dense_select.launches == before + 1
     _assert_kernel_equals_plain(k, p, shadow)
+
+
+def test_dense_cull_on_testscene_cones(dev):
+    """K4 on TestScene's 1,024 transformed cones with its L0 rays tests
+    fewer cones per ray than the per-128-prim block cull did (117.95 per
+    ray on the card), and equals the plain version."""
+    from glome_tpu_torch import group_kernels as GK
+    from glome_tpu_torch import intersect as TI
+    from glome_tpu_torch.scenes import test_scene
+    from glome_tpu_torch.tools.kernel_ab import l0_batch
+    solid, lights, cam = test_scene()
+    compiled = T.compile_scene(solid, lights)
+    sc = compiled.scenes[0]
+    gi = next(i for i, g in enumerate(sc.groups) if g.ptype == "cone")
+    arrays = T.to_torch(compiled.arrays(), dev)["scenes"][0]
+    args, cull = TI.dense_args(sc, arrays, gi, False, dev)
+    rays = l0_batch(cam, 720, 480, dev)
+    seed = rays[6].contiguous()
+    tally = torch.zeros((2, rays.shape[1]), dtype=torch.int32, device=dev)
+    k = GK.dense_select(*args, rays, seed, block_bbox=cull, tally=tally)
+    per_ray = (tally.sum(dim=1).double() / rays.shape[1]).tolist()
+    print(f"box / cone tests per ray: {per_ray}")
+    assert per_ray[1] < 117.95
+    p = GK.dense_select_plain(*args, rays, seed)
+    _assert_kernel_equals_plain(k, p, False)
 
 
 @pytest.mark.parametrize("constrained", [False, True])

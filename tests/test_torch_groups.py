@@ -6,6 +6,8 @@ glome_tpu's, on the CPU.
   - K4 / K5's plain versions (group_kernels.dense_select_plain /
     bvh_select_plain, what CPU tensors run) against glome_tpu's Pallas
     dense_intersect / bvh_intersect in interpret mode;
+  - K4's cull table (group_kernels.cull_aabbs) against the plain
+    version's candidates: no box culls a candidate;
   - TestScene 90x60 depth 3 through WavefrontTracer(route=GROUPS)
     against glome_tpu's CPU golden of the frame.
 
@@ -34,6 +36,8 @@ from glome_tpu_torch import intersect as TI
 from glome_tpu_torch import megakernel as TMK
 from glome_tpu_torch.compile import group_accel
 from glome_tpu_torch.io import quantize, read_png
+from glome_tpu_torch.megakernel import _field_width
+from glome_tpu_torch.render import pixel_coords, primary_rays
 from glome_tpu_torch.scenes import test_scene as torch_test_scene
 from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
                                                phase_kinds_lights,
@@ -221,6 +225,149 @@ def test_dense_select_plain_matches_pallas(kind, shadow):
     assert GK.dense_select.launches == 0
     _assert_select_close((tg.numpy(), lg.numpy()),
                          (np.asarray(tw), np.asarray(lw)), shadow)
+
+
+# --- K4's cull table ---------------------------------------------------------
+
+def _slab(boxes, o, d):
+    """(near, far) (n, m) of csrc/walk.cuh box_live: n rays against the
+    first six columns [bmin, bmax] of m boxes, in the kernel's float32
+    operations."""
+    iv = 1.0 / torch.where(d == 0.0, torch.full_like(d, 1e-20), d)
+    t1 = (boxes[None, :, 0:3] - o[:, None, :]) * iv[:, None, :]
+    t2 = (boxes[None, :, 3:6] - o[:, None, :]) * iv[:, None, :]
+    return torch.minimum(t1, t2).amax(-1), torch.maximum(t1, t2).amin(-1)
+
+
+def _grazing_rays(ptype, rows, transformed, boxes, rng, k=384):
+    """Rays that graze k random prims: from a random direction, the
+    origin slides sideways off each prim by bisection (40 steps) until
+    the ray barely hits it (the plain version's candidates); returns the
+    barely-hitting and the barely-missing rays."""
+    P = rows.shape[0]
+    j = torch.as_tensor(rng.integers(0, P, k))
+    d = torch.as_tensor(rng.normal(size=(k, 3)), dtype=torch.float32)
+    d = d / d.norm(dim=1, keepdim=True)
+    e = torch.as_tensor(rng.normal(size=(k, 3)), dtype=torch.float32)
+    e = e - (e * d).sum(1, keepdim=True) * d
+    e = e / e.norm(dim=1, keepdim=True)
+    lo_b, hi_b = boxes[j, 0:3], boxes[j, 3:6]
+    c = (lo_b + hi_b) * 0.5
+    diag = (hi_b - lo_b).norm(dim=1, keepdim=True)
+
+    def origin(s):
+        return c + e * s - d * (3.0 * diag + 1.0)
+
+    def hits(s):
+        t0, t1 = TMK._candidates(ptype, rows[j], _field_width(ptype),
+                                 transformed, origin(s), d)
+        t0, t1 = t0.diagonal(), t1.diagonal()
+        return ((t0 > 0) & (t0 < INF)) | ((t1 > 0) & (t1 < INF))
+    s_lo = torch.zeros((k, 1))
+    s_hi = diag.clone()                  # this far off the centre: a miss
+    keep = hits(s_lo) & ~hits(s_hi)
+    for _ in range(40):
+        mid = (s_lo + s_hi) * 0.5
+        h = hits(mid)[:, None]
+        s_lo = torch.where(h, mid, s_lo)
+        s_hi = torch.where(h, s_hi, mid)
+    return (torch.cat([origin(s_lo)[keep], origin(s_hi)[keep]]),
+            torch.cat([d[keep], d[keep]]))
+
+
+def _assert_cull_contains_candidates(args, table, o, d):
+    """Every candidate of the plain version's arithmetic (0 < t < INF,
+    before visibility and constraints) lies inside its prim's padded
+    box and its sub-block's box by box_live's slab test: near <= t <=
+    far.  Returns the candidates checked."""
+    ptype, params_T, m_inv, _vis, _cons = args
+    rows = GK._dense_table(params_T, m_inv).t()
+    P = rows.shape[0]
+    n_sub = (P + GK.SUB - 1) // GK.SUB
+    sub = torch.arange(P) // GK.SUB
+    checked = 0
+    for s in range(0, o.shape[0], 256):
+        oc, dc = o[s:s + 256], d[s:s + 256]
+        t0, t1 = TMK._candidates(ptype, rows, _field_width(ptype),
+                                 m_inv is not None, oc, dc)
+        for box in (table[n_sub:], table[:n_sub][sub]):
+            near, far = _slab(box, oc, dc)
+            for t in (t0, t1):
+                cand = (t > 0.0) & (t < INF)
+                bad = cand & ~((near <= t) & (t <= far))
+                assert not bad.any(), (
+                    f"{int(bad.sum())} candidates outside their box, "
+                    f"e.g. t {t[bad][:4].tolist()}, near "
+                    f"{near[bad][:4].tolist()}, far {far[bad][:4].tolist()}")
+                checked += int(cand.sum())
+    return checked
+
+
+def _dense_groups_of(compiled):
+    return [(si, gi) for si, sc in enumerate(compiled.scenes)
+            for gi, g in enumerate(sc.groups)
+            if g.vclass not in ("deferred", "convex") and g.size
+            and not g.accel_eligible]
+
+
+@pytest.mark.parametrize("scene", ["testscene", "rotated_boxes"])
+def test_cull_boxes_contain_every_candidate(testscene_pair, scene):
+    """K4's padded per-prim and per-sub-block boxes (cull_aabbs) hold
+    every candidate hit of the plain version's arithmetic, on seeded
+    rays (camera or block_rays, uniform, and rays grazing random prims),
+    for TestScene's 7 dense groups and block_scene's rotated boxes; each
+    sub-block box is the union of its prims' padded boxes."""
+    rng = np.random.default_rng(11)
+    if scene == "testscene":
+        _cj, ct, cam = testscene_pair
+        ys, xs = np.mgrid[0:40, 0:60]
+        xc, yc = pixel_coords(60, 40, torch.as_tensor(xs.reshape(-1) + 0.5,
+                                                      dtype=torch.float32),
+                              torch.as_tensor(ys.reshape(-1) + 0.5,
+                                              dtype=torch.float32))
+        o_cam, d_cam = primary_rays(cam, xc, yc)
+    else:
+        ct = T.compile_scene(block_scene("transformed"), phase_kinds_lights(),
+                             accel_min_size=1 << 30)
+        o_np, d_np = block_rays(2400, seed=9)
+        o_cam, d_cam = torch.as_tensor(o_np), torch.as_tensor(d_np)
+    arrays = T.to_torch(ct.arrays(), "cpu")
+    groups = _dense_groups_of(ct)
+    assert len(groups) == (7 if scene == "testscene" else 1)
+    for si, gi in groups:
+        g = ct.scenes[si].groups[gi]
+        args, table = TI.dense_args(ct.scenes[si], arrays["scenes"][si], gi,
+                                    False, "cpu")
+        P = g.size
+        n_sub = (P + GK.SUB - 1) // GK.SUB
+        assert tuple(table.shape) == (n_sub + P, 8)
+        prim = table[n_sub:]
+        for s in range(n_sub):
+            part = prim[s * GK.SUB:(s + 1) * GK.SUB]
+            assert torch.equal(table[s, 0:3], part[:, 0:3].amin(0))
+            assert torch.equal(table[s, 3:6], part[:, 3:6].amax(0))
+        ga = arrays["scenes"][si][gi]
+        bmin, bmax = TMK.prim_aabb(g.ptype, {k: v for k, v in ga.items()
+                                             if k not in ("m_inv", "m_fwd")},
+                                   ga.get("m_fwd"))
+        assert (prim[:, 0:3] < bmin).all() and (prim[:, 3:6] > bmax).all()
+        lo = prim[:, 0:3].amin(0) - 1.0
+        hi = prim[:, 3:6].amax(0) + 1.0
+        u = torch.as_tensor(rng.uniform(size=(512, 3)), dtype=torch.float32)
+        o_uni = lo + (hi - lo) * u
+        d_uni = torch.as_tensor(rng.normal(size=(512, 3)),
+                                dtype=torch.float32)
+        d_uni = d_uni / d_uni.norm(dim=1, keepdim=True)
+        rows = GK._dense_table(args[1], args[2]).t()
+        o_gr, d_gr = _grazing_rays(g.ptype, rows, args[2] is not None, prim,
+                                   rng)
+        assert o_gr.shape[0] >= 128
+        checked = _assert_cull_contains_candidates(
+            args, table, torch.cat([o_cam, o_uni, o_gr]),
+            torch.cat([d_cam, d_uni, d_gr]))
+        print(f"{si}.g{gi} ({P} {g.ptype}): {checked} candidates inside, "
+              f"{o_gr.shape[0]} grazing rays")
+        assert checked > 0
 
 
 @pytest.mark.parametrize("constrained", [False, True])

@@ -238,3 +238,105 @@ def test_finalize_gradients_match_jax(scenes, intersect_case):
                                            err_msg=f"{si}/{gi}/{k}")
                 n_nonzero += int((got != 0).any())
     assert n_nonzero >= 5
+
+
+# --- K1's child-pair node records ------------------------------------------
+
+def _walk_records(plan, ph, recs):
+    """Walk one bvh2 tree's child-pair records (megakernel.node_records)
+    from its root beside the plan's per-node tables, asserting every child
+    box and leaf range; returns (nodes reached, depth)."""
+    M = ph.n_nodes
+    box = plan.nf[ph.nf_base:ph.nf_base + 6 * M].reshape(M, 6)
+    ni = plan.ni[ph.ni_base:ph.ni_base + 4 * M].reshape(M, 4)
+    words = recs.view(np.int32)
+    np.testing.assert_array_equal(recs[0, 0:6], box[0])
+    reached, depth = 0, 0
+    todo = [(0, int(words[0, 12]), 1)]
+    while todo:
+        node, ref, level = todo.pop()
+        reached += 1
+        depth = max(depth, level)
+        if ref < 0:                               # a leaf: its range
+            assert ni[node, 3] > 0
+            assert ((~ref) >> 5, (~ref) & 31) == (ni[node, 2], ni[node, 3])
+            continue
+        assert ref > 0 and ni[node, 3] == 0
+        left, right = int(ni[node, 0]), int(ni[node, 1])
+        np.testing.assert_array_equal(recs[ref, 0:6], box[left])
+        np.testing.assert_array_equal(recs[ref, 6:12], box[right])
+        todo.append((left, int(words[ref, 12]), level + 1))
+        todo.append((right, int(words[ref, 13]), level + 1))
+    return reached, depth
+
+
+@pytest.mark.parametrize("scene", ["testscene", "phase_kinds", "spheres",
+                                   "difference", "transformed"])
+def test_node_records_give_back_the_trees(scene):
+    """Every bvh2 tree's child-pair records give back plan.nf / plan.ni
+    exactly (each child box and leaf range, every node reached once),
+    each phase's descriptor points at its tree's records, and no tree is
+    deeper than the kernel's stack bound."""
+    from glome_tpu_torch.scenes import test_scene
+    from glome_tpu_torch.scenes.phasescene import block_scene
+    if scene == "testscene":
+        solid, lights, _cam = test_scene()
+    elif scene == "phase_kinds":
+        solid, lights = phase_kinds_scene(T), phase_kinds_lights(T)
+    else:
+        solid, lights = block_scene(scene), phase_kinds_lights(T)
+    plan = TMK.get_plan(T.compile_scene(solid, lights))
+    tab, bases = TMK.node_records(plan)
+    recs = tab.reshape(-1, TMK.NODE_W)
+    desc = TMK.encode_phases(plan)[:len(plan.phases) * TMK.PH_W].reshape(
+        -1, TMK.PH_W)
+    trees = [i for i, ph in enumerate(plan.phases) if ph.kind == "bvh2"]
+    assert trees and sorted(bases) == trees
+    ends = sorted(bases.values()) + [len(recs)]
+    for i in trees:
+        ph = plan.phases[i]
+        base = bases[i]
+        assert desc[i, TMK.PH_NODE] == base
+        n_inner = int((plan.ni[ph.ni_base:ph.ni_base + 4 * ph.n_nodes]
+                       .reshape(-1, 4)[:, 3] == 0).sum())
+        assert ends[ends.index(base) + 1] - base == 1 + n_inner
+        reached, depth = _walk_records(plan, ph,
+                                       recs[base:base + 1 + n_inner])
+        assert reached == ph.n_nodes
+        assert depth == ph.depth <= TMK.STACK_MAX
+    print(f"{scene}: {len(trees)} bvh2 trees, depths "
+          f"{[plan.phases[i].depth for i in trees]}, {len(recs)} records")
+
+
+def test_pbox_rows_are_the_padded_prim_boxes():
+    """K1 culls a transformed bvh2 group's prims by their padded world
+    boxes: TestScene's 1,024-cone phase gets them (and only the
+    transformed trees do), in PF row order, equal to K4's cull boxes of
+    the same prims (group_kernels.cull_aabbs, whose containment
+    tests/test_torch_groups.py checks)."""
+    from glome_tpu_torch import group_kernels as GK
+    from glome_tpu_torch.scenes import test_scene
+    solid, lights, _cam = test_scene()
+    ct = T.compile_scene(solid, lights)
+    plan = TMK.get_plan(ct)
+    arrays = T.to_torch(ct.arrays(), "cpu")
+    tables = TMK.pack_tables(plan, ct, arrays)
+    desc = TMK.encode_phases(plan)[:len(plan.phases) * TMK.PH_W].reshape(
+        -1, TMK.PH_W)
+    spec = {i: (si, gi, perm) for i, si, gi, perm in plan.pbox_spec}
+    for i, ph in enumerate(plan.phases):
+        want = ph.kind == "bvh2" and ph.transformed
+        assert (i in spec) == want
+        assert (desc[i, TMK.PH_PBOX] >= 0) == want
+    assert [plan.phases[i].ptype for i in spec] == ["cone"]
+    for i, (si, gi, perm) in spec.items():
+        g = ct.scenes[si].groups[gi]
+        ga = arrays["scenes"][si][gi]
+        cull = GK.cull_aabbs(g.ptype, {k: v for k, v in ga.items()
+                                       if k not in ("m_inv", "m_fwd")},
+                             ga["m_fwd"], g.size)
+        base = int(desc[i, TMK.PH_PBOX])
+        n_sub = (g.size + GK.SUB - 1) // GK.SUB
+        np.testing.assert_array_equal(
+            tables.pbox[base:base + g.size].numpy(),
+            cull[n_sub:][torch.as_tensor(perm, dtype=torch.int64)].numpy())
