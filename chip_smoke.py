@@ -17,8 +17,9 @@ micro_kwide), and checks them in phases:
      checkout, one nvcc each, all started together (build seconds, ptxas
      register and spill counts);
   3. K1 against mega_select_plain on the card, on the all-phase-kinds
-     scene, the CSG scene and TestScene's 345,600 primary rays (L0),
-     intersect and shadow;
+     scene, the CSG scene, TestScene's 345,600 primary rays (L0) and the
+     200-sphere chain (phasescene.chain_scene: a bvh2 tree of depth 47,
+     walked with a plan-sized stack), intersect and shadow;
   4. TestScene frame: 720x480, depth 3, through the kernels: 6 K1
      launches, no K2-K5 launch, no plain call, zero overflow, and within
      the drift canaries of out/testscene_tpu.png;
@@ -31,15 +32,17 @@ micro_kwide), and checks them in phases:
      (glome_tpu_torch.tools.kernel_ab.attribution: the launch timed with
      phases >= k switched off in a copy of the descriptor table, for
      every k, by tools.device_time);
-  7. K2 against block_select_plain on the card: K2 launched on all
-     1920x1080 L0 rays of mesh_scene(100_000) (intersect) and on all its
-     shadow rays with cast_shadows=True, as the frame launches it, and
-     held against the plain version on a 65,536-lane subset; and the
-     700-sphere scene of glome_tpu's tests/test_block.py (plain, with a
-     difference constraint, and 300 rotated boxes) with BLOCK_MIN
-     lowered to 256;
+  7. K2 against block_select_plain on the card, equal on every checked
+     lane, winners included: K2 launched on all 1920x1080 L0 rays of
+     mesh_scene(100_000) (intersect) and on all its shadow rays with
+     cast_shadows=True, as the frame launches it, and held against the
+     plain version on a 65,536-lane subset; the 700-sphere scene of
+     glome_tpu's tests/test_block.py (plain, with a difference
+     constraint, and 300 rotated boxes) with BLOCK_MIN lowered to 256;
+     a 320-sphere chain whose block tree is 80 deep; and the flat quad
+     grid of phasescene.tie_grid_scene, whose rays tie rows exactly;
   8. K3 against mesh_block_select_plain likewise, on the L0 and shadow
-     rays of mesh_scene(250_000);
+     rays of mesh_scene(250_000) and on the tie grid;
   9. mesh frames: mesh_scene(100_000) at 1920x1080, depth 1, with and
      without cast_shadows (K1 + K2), and mesh_scene(250_000) with
      cast_shadows (K1 + K3): launch counts, no plain call, zero
@@ -58,7 +61,8 @@ micro_kwide), and checks them in phases:
      its rays actually made (counted by a tallying build of the kernel;
      K1 also counts its clause work, point-in-node tests and member
      inside tests) over 67 TFLOP/s; and the tallies of each mesh through
-     the other kernel;
+     the other kernel: K3's box + triangle tests per ray are at most 1.1x
+     K2's on the same rays;
  12. K4 against dense_select_plain on the card: K4 launched on every
      dense group of TestScene with all 345,600 L0 rays and all their
      shadow rays, held against the plain version on the whole batch; and
@@ -90,9 +94,17 @@ micro_kwide), and checks them in phases:
      4, 8, 16 (visited nodes per tile, exactly the plain version's) and
      the scratch reads at NREAD = 16, 64.
 
-Kernel against plain: hit/blocked agree on >= 99.9% of lanes, t within
-rtol 5e-5 / atol 1e-4 on >= 99.9% of the agreeing lanes, and the winner
-differs beyond a distance tie on <= 0.1% of lanes.
+Kernel against plain: K2 and K3 equal their plain versions on every
+lane (hit or blocked, t bit for bit, and the winner: both take the
+lowest row of an exact tie).  K1, K4 and K5: hit/blocked agree on >=
+99.9% of lanes, t within rtol 5e-5 / atol 1e-4 on >= 99.9% of the
+agreeing lanes, and the winner differs beyond a distance tie on <= 0.1%
+of lanes.
+
+Each kernel's entry in the kernels line also carries "ptxas": the
+registers, stack frame and spills ptxas gave its normal (non-counting)
+build; K1-K3 also "smem_bytes", the dynamic shared memory of their
+plan-sized walk stacks at the main path's launch.
 
 In the kernels line each M1 and M2 variant is an entry of its own, named
 "micro_prims.<variant>" or "micro_kwide.<variant>": it has its own C
@@ -108,6 +120,7 @@ result.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -151,9 +164,10 @@ def canaries_ok(name, got, want):
     return ok
 
 
-def compare(name, kern, plain, shadow):
-    """A kernel's (t, winner, ...) against its plain version's, as
-    numpy."""
+def compare(name, kern, plain, shadow, exact=False):
+    """A kernel's (t, winner, ...) against its plain version's, as numpy.
+    exact: every lane must agree -- hit or blocked, and in intersect
+    mode t bit for bit and the winner (no near-tie difference)."""
     tk, wk = kern[0], kern[1]
     tp, wp = plain[0], plain[1]
     n = len(tk)
@@ -165,6 +179,8 @@ def compare(name, kern, plain, shadow):
           f"{word} disagree on {int((~agree).sum())} lanes "
           f"({100 * (1 - frac):.4f}%)")
     ok = frac >= AGREE_MIN
+    if exact:
+        ok = bool(agree.all())
     if shadow:
         return ok, 0.0
     close = np.isclose(tk, tp, rtol=RTOL, atol=ATOL)
@@ -177,9 +193,38 @@ def compare(name, kern, plain, shadow):
     print(f"    t outside rtol {RTOL}/atol {ATOL}: {t_out} of {n_agree} "
           f"agreeing lanes; max |dt| on common hits {max_err:.6g}; "
           f"winner differs at near-ties {wid_tie}, beyond ties {wid_bad}")
+    if exact:
+        same_t = bool(np.array_equal(tk, tp))
+        print(f"    exact: t bit-equal on every lane {same_t}, winners "
+              f"differ on {wid_tie + wid_bad} lanes")
+        return ok and same_t and wid_tie + wid_bad == 0, max_err
     ok = ok and t_out <= (1 - AGREE_MIN) * n_agree \
         and wid_bad <= (1 - AGREE_MIN) * n
     return ok, max_err
+
+
+def ptxas_figures(log, kernel):
+    """{registers, stack_frame, spill_stores, spill_loads} ptxas -v gave
+    the normal (kTally = false) build of `kernel` in a build log."""
+    fig, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
+                      r"(?: for|$)", line.strip())
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None or kernel not in cur or "ILb0E" not in cur:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            fig.update(stack_frame=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            fig["registers"] = int(m.group(1))
+    return fig
 
 
 def main():
@@ -202,7 +247,7 @@ def main():
     from glome_tpu_torch import kernels
     from glome_tpu_torch import megakernel as MK
     from glome_tpu_torch import mesh_kernel as MSH
-    from glome_tpu_torch.compile import group_accel, group_device_params
+    from glome_tpu_torch.compile import group_accel
     from glome_tpu_torch.io import quantize, read_png, write_png
     from glome_tpu_torch.scenes import mesh_scene, test_scene
     from glome_tpu_torch.tools import kernel_ab as KAB
@@ -210,10 +255,13 @@ def main():
     from glome_tpu_torch.tools import micro_prims as MPR
     from glome_tpu_torch.tools.device_time import device_time
     from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
+                                                   chain_rays, chain_scene,
                                                    csg_rays, csg_scene,
                                                    phase_kinds_lights,
                                                    phase_kinds_rays,
-                                                   phase_kinds_scene)
+                                                   phase_kinds_scene,
+                                                   tie_grid_rays,
+                                                   tie_grid_scene)
     from glome_tpu_torch.trace import _light_arrays
     from glome_tpu_torch.trace_wavefront import shadow_rays
 
@@ -367,6 +415,10 @@ def main():
         paths = kernels.load_all()
         print(f"  {len(paths)} nvcc runs in parallel: "
               f"{time.perf_counter() - t0:.2f} s wall")
+        for name, path in zip(kernel_fns, paths):
+            # K1-K5 come first, in kernel_fns order (kernels.LIBRARIES)
+            entries[name]["ptxas"] = ptxas_figures(
+                kernels.BUILD_INFO[path]["log"], name + "_kernel")
         for path in paths:
             info = kernels.BUILD_INFO[path]
             print(f"  {os.path.relpath(path, ROOT)}: nvcc "
@@ -433,6 +485,23 @@ def main():
                                       lrad)
         k, p = both(tables, sh.contiguous(), True)
         ok &= compare("TestScene L0 shadow", k, p, True)[0]
+        # a bvh2 tree deeper than the fixed 32-entry stack K1 had
+        cc = T.compile_scene(chain_scene(), phase_kinds_lights())
+        cplan = MK.get_plan(cc)
+        ctabs = MK.pack_tables(cplan, cc, T.to_torch(cc.arrays(), dev))
+        depth = max(ph.depth for ph in cplan.phases if ph.kind == "bvh2")
+        print(f"  200-sphere chain: bvh2 depth {depth}, walk stack "
+              f"{MK.walk_stack(cplan)} entries per thread")
+        ok &= depth > 32
+        o, d = chain_rays(SUBSET)
+        for shadow, seed_t in ((False, T.INFINITY), (True, 1.0)):
+            rays = torch.as_tensor(np.stack(
+                [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                 np.full(SUBSET, seed_t, np.float32),
+                 np.zeros(SUBSET, np.float32)]), device=dev).contiguous()
+            k, p = both(ctabs, rays, shadow)
+            ok &= compare(f"chain {'shadow' if shadow else 'intersect'}", k,
+                          p, shadow)[0]
         return ok
     phase("3 K1 vs plain", p_compare)
 
@@ -552,21 +621,10 @@ def main():
         return meshes[key]
 
     def k2_inputs(cc, garrs, grp):
-        sc = cc.scenes[grp[0]]
-        g = sc.groups[grp[1]]
-        bplan = BK.get_block_plan(g, sc)
-        ga = {k: v.detach() for k, v in
-              group_device_params(g, garrs["scenes"][grp[0]][grp[1]]).items()
-              if k != "m_fwd"}
-        return (bplan, BK.pack_blocks(bplan, ga),
-                BK.pack_cons(bplan, sc, garrs["scenes"][grp[0]], dev))
+        return KAB.block_inputs(cc, garrs, grp, dev)
 
     def k3_inputs(cc, garrs, grp):
-        g = cc.scenes[grp[0]].groups[grp[1]]
-        mplan = MSH.get_block_plan(g)
-        ga = group_device_params(g, garrs["scenes"][grp[0]][grp[1]])
-        return mplan, MSH.pack_tri_blocks(
-            mplan, {k: ga[k].detach() for k in ("p1", "p2", "p3")})
+        return KAB.mesh_inputs(cc, garrs, grp)
 
     mesh_batches = {}
 
@@ -575,15 +633,56 @@ def main():
         the seed K1 (the ground plane) leaves for the mesh group, and the
         shadow rays of the L0 hits after the whole chain."""
         if n_tris not in mesh_batches:
-            cc, garrs, mp, c, _grp = mesh(n_tris, True)
-            Q = l0_batch(c, *MESH_RES)
-            t1, _w, _a = MK.mega_select(MK.pack_tables(mp, cc, garrs), Q,
-                                        False)
-            hit = MK.mega_intersect_table(cc, garrs, Q)
-            lpos, _lcol, lrad = _light_arrays(cc, garrs, cc.lights)
-            _pre, _segs, sh = shadow_rays(hit, Q[7], cc.lights, lpos, lrad)
-            mesh_batches[n_tris] = (Q, t1.contiguous(), sh.contiguous())
+            cc, garrs, _mp, c, _grp = mesh(n_tris, True)
+            mesh_batches[n_tris] = KAB.mesh_batches(cc, garrs, c, dev,
+                                                    MESH_RES)
         return mesh_batches[n_tris]
+
+    def check_group_kernel(label, fn, plain, args, make_rays, seeds,
+                           tri_rows=None):
+        """K2 or K3 (fn, on the group inputs args) against its plain
+        version, exactly, on rays from make_rays(n, seed=...) with seed t
+        seeds = (intersect, shadow).  With tri_rows, the group's (P, F)
+        triangle rows, the intersect lanes whose winning t more than one
+        row meets (exact ties) are counted, and there must be some."""
+        ok = True
+        o, d = make_rays(SUBSET, seed=4)
+        for shadow, seed_t in zip((False, True), seeds):
+            rays = torch.as_tensor(np.stack(
+                [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                 np.full(SUBSET, seed_t, np.float32),
+                 np.zeros(SUBSET, np.float32)]), device=dev).contiguous()
+            rays[6, ::17] = 0.0                       # dead lanes
+            seed = rays[6].contiguous()
+            k = fn(*args, rays, seed, shadow)
+            p = plain(*args, rays, seed, shadow)
+            torch.cuda.synchronize()
+            ok &= compare(f"{label} {'shadow' if shadow else 'intersect'}",
+                          as_np(k), as_np(p), shadow, exact=True)[0]
+            if tri_rows is not None and not shadow:
+                n_tie = tie_lanes(tri_rows, rays, p[0])
+                print(f"    {n_tie} lanes with more than one row at the "
+                      f"winning t")
+                ok &= n_tie > 0
+        return ok
+
+    def tie_grid_inputs():
+        """(compiled, device arrays, (0, 0)) of the tie grid: one mesh
+        group of 512 flat triangles."""
+        tc = T.compile_scene(tie_grid_scene(), phase_kinds_lights())
+        return tc, T.to_torch(tc.arrays(), dev), (0, 0)
+
+    def tie_lanes(rows, rays, t_win):
+        """Lanes of rays whose winning t (t_win, on the card) more than
+        one of the (P, F) triangle rows meets: real exact ties."""
+        n_tie = 0
+        for s0 in range(0, rays.shape[1], 4096):
+            sl = slice(s0, s0 + 4096)
+            t0, _t1 = MK._candidates("triangle", rows, 9, False,
+                                     rays[0:3, sl].t(), rays[3:6, sl].t())
+            n_tie += int((((t0 == t_win[sl, None]) & (t0 > 0)).sum(1)
+                          > 1).sum())
+        return n_tie
 
     def sub_rays(rays, seed):
         ix = subset(rays.shape[1])
@@ -609,7 +708,8 @@ def main():
             mode = "shadow" if shadow else "intersect"
             good, err = compare(f"mesh100k 1080p L0 {mode} (full launch, "
                                 f"{SUBSET}-lane subset checked)",
-                                as_np([a[ix] for a in k]), as_np(p), shadow)
+                                as_np([a[ix] for a in k]), as_np(p), shadow,
+                                exact=True)
             ok &= good
             if not shadow:
                 entries["block_select"]["max_abs_err"] = err
@@ -644,9 +744,31 @@ def main():
                                  f"{', transformed' if bp_.transformed else ''}"
                                  f"{', constrained' if bp_.cons else ''}) "
                                  f"{mode}")
-                        ok &= compare(label, as_np(k), as_np(p), shadow)[0]
+                        ok &= compare(label, as_np(k), as_np(p), shadow,
+                                      exact=True)[0]
         finally:
             MK.BLOCK_MIN = saved
+        # a block tree deeper than the fixed 64-entry stack K2 had: the
+        # 320-sphere chain in 4-sphere blocks, called directly
+        ratio = 2.0 ** (-1 / 6)
+        cc = T.compile_scene(chain_scene(320, ratio), phase_kinds_lights())
+        cplan, ctab, ccf = k2_inputs(cc, T.to_torch(cc.arrays(), dev), (0, 0))
+        print(f"  320-sphere chain: {cplan.n_blocks} blocks, block tree depth "
+              f"{cplan.depth}, walk stack {kernels.walk_stack(cplan.depth)} "
+              f"entries per thread")
+        ok &= cplan.depth > 64
+        ok &= check_group_kernel(
+            "320-sphere chain", BK.block_select, BK.block_select_plain,
+            (cplan, ctab, ccf),
+            lambda n, seed: chain_rays(n, seed, n_spheres=320, ratio=ratio),
+            (T.INFINITY, 1.0))
+        # exact ties between rows: the winner is the lowest row
+        tc, tg, grp = tie_grid_inputs()
+        targs = k2_inputs(tc, tg, grp)
+        ok &= check_group_kernel("tie grid", BK.block_select,
+                                 BK.block_select_plain, targs, tie_grid_rays,
+                                 (T.INFINITY, 5.0),
+                                 targs[1].reshape(-1, targs[0].F))
         return ok
     phase("7 K2 vs plain", p_k2)
 
@@ -656,8 +778,9 @@ def main():
         cc, garrs, _mp, _c, grp = mesh(250_000, True)
         mplan, tri = k3_inputs(cc, garrs, grp)
         Q, t1, sh = mesh_l0(250_000)
-        print(f"  mesh plan: {mplan.n_blocks} blocks of {MSH.BP}, "
-              f"{mplan.n_nodes} nodes; L0 {Q.shape[1]} rays, shadow batch "
+        print(f"  mesh plan: {mplan.n_blocks} blocks of {MSH.BP}, at most "
+              f"{MSH.BLOCK_LEAF_MAX} per leaf, {mplan.n_nodes} nodes, depth "
+              f"{mplan.depth}; L0 {Q.shape[1]} rays, shadow batch "
               f"{sh.shape[1]} rays")
         for shadow, rays, seed in ((False, Q, t1), (True, sh, sh[6])):
             ix = subset(rays.shape[1])
@@ -668,10 +791,16 @@ def main():
             mode = "shadow" if shadow else "intersect"
             good, err = compare(f"mesh250k 1080p L0 {mode} (full launch, "
                                 f"{SUBSET}-lane subset checked)",
-                                as_np([a[ix] for a in k]), as_np(p), shadow)
+                                as_np([a[ix] for a in k]), as_np(p), shadow,
+                                exact=True)
             ok &= good
             if not shadow:
                 entries["mesh_block_select"]["max_abs_err"] = err
+        tc, tg, grp = tie_grid_inputs()
+        targs = k3_inputs(tc, tg, grp)
+        ok &= check_group_kernel("tie grid", MSH.mesh_block_select,
+                                 MSH.mesh_block_select_plain, targs,
+                                 tie_grid_rays, (T.INFINITY, 5.0), targs[1])
         return ok
     phase("8 K3 vs plain", p_k3)
 
@@ -915,6 +1044,11 @@ def main():
         # rays [o, d, seed, sid] in; t, wid, aux out
         bound("mega_select", 32 * n, 12 * n, tbytes, tally.cpu(),
               MIN_PRIM_FLOPS)
+        n_meta = tables.phases.numel()
+        entries["mega_select"]["smem_bytes"] = (
+            MK.walk_stack(plan) * kernels.WALK_THREADS
+            * kernels.STACK_ENTRY_BYTES
+            + (4 * n_meta if n_meta <= MK.META_MAX else 0))
         for name, n_tris, inputs, fn in (
                 ("block_select", 100_000, k2_inputs, BK.block_select),
                 ("mesh_block_select", 250_000, k3_inputs,
@@ -926,22 +1060,32 @@ def main():
             tally = tally_for(n)
             fn(*args, Q, t1, False, tally=tally)
             p = args[0]
-            nodes = p.nf.nbytes + p.ni.nbytes
             table = sum(a.numel() * a.element_size() for a in args[1:])
             # o, d and the seed in; t and the winner out
-            bound(name, 28 * n, 8 * n, nodes + table, tally.cpu(),
+            bound(name, 28 * n, 8 * n, p.nodes.nbytes + table, tally.cpu(),
                   TRI_FLOPS)
-        # each mesh's rays through the other kernel's walk too
-        for label, n_tris, inputs, fn in (
-                ("K3 on mesh100k", 100_000, k3_inputs, MSH.mesh_block_select),
-                ("K2 on mesh250k", 250_000, k2_inputs, BK.block_select)):
+            entries[name]["smem_bytes"] = (
+                kernels.walk_stack(p.depth) * kernels.WALK_THREADS
+                * kernels.STACK_ENTRY_BYTES)
+        # each mesh's rays through both kernels' walks: K3, redesigned on
+        # K2's walk, makes at most 1.1x K2's box + triangle tests
+        ok = True
+        for n_tris in (100_000, 250_000):
             cc, garrs, _mp, _c, grp = mesh(n_tris, True)
             Q, t1, _sh = mesh_l0(n_tris)
-            tally = tally_for(Q.shape[1])
-            fn(*inputs(cc, garrs, grp), Q, t1, False, tally=tally)
-            per_ray = (tally.sum(dim=1) / Q.shape[1]).tolist()
-            print(f"  {label}: {per_ray[0]:.2f} box + {per_ray[1]:.2f} "
-                  f"triangle tests per ray")
+            per = {}
+            for label, inputs, fn in (("K2", k2_inputs, BK.block_select),
+                                      ("K3", k3_inputs,
+                                       MSH.mesh_block_select)):
+                tally = tally_for(Q.shape[1])
+                fn(*inputs(cc, garrs, grp), Q, t1, False, tally=tally)
+                per[label] = (tally.sum(dim=1) / Q.shape[1]).tolist()
+            ratio = sum(per["K3"]) / sum(per["K2"])
+            print(f"  mesh{n_tris // 1000}k L0: K2 {per['K2'][0]:.2f} box + "
+                  f"{per['K2'][1]:.2f} triangle tests per ray, K3 "
+                  f"{per['K3'][0]:.2f} + {per['K3'][1]:.2f}: K3 / K2 "
+                  f"{ratio:.3f} (<= 1.1)")
+            ok &= ratio <= 1.1
         # K4 on the cone group's L0 batch, K5 on the biggest lattice
         # group's, each as the route launches it
         for name, gi, kind in (("dense_select", cone_gi, "dense"),
@@ -959,7 +1103,7 @@ def main():
             bound(name, 28 * n, 8 * n,
                   sum(t.numel() * t.element_size() for t in tabs),
                   tally.cpu(), MIN_PRIM_FLOPS)
-        return True
+        return ok
     phase("11 bounds", p_bounds)
 
     # -- 12. K4 against the plain version -----------------------------------

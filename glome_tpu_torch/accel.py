@@ -12,8 +12,11 @@ reference's Mesh BVH, Mesh.hs:69-113):
     per-ray stack walk of the megakernel's 'bvh2' phases;
   - build_bvh: DFS order with *skip links* (on a box miss jump to
     node.skip, on a hit fall through to node+1), used for the
-    stackless point queries over big CSG member sets and K3's block
-    walk (mesh_kernel).
+    stackless point queries over big CSG member sets and K5's group
+    walk (compile.group_accel).
+
+node_records lays a build_bvh2 tree out as the child-pair records the
+CUDA near-first walks read (K1, K2, K3; csrc/bvh_walk.cuh).
 
 The builders are pure numpy; glome_tpu's C++ builder
 (glome_tpu/native/bvh_builder.cpp) emits identical tables on the
@@ -30,6 +33,11 @@ import numpy as np
 from .config import DELTA, INFINITY
 
 LEAF_MAX = 4
+# floats per child-pair record (NODE_W in csrc/bvh_walk.cuh): both
+# children's boxes, then their references
+NODE_W = 16
+# a leaf reference packs (first row << LEAF_BITS) | row count
+LEAF_BITS = 5
 COST_SPLIT = 1.1
 COST_BIG = 1.2
 BIG_SA_FRAC = 0.4
@@ -306,3 +314,42 @@ def build_bvh(bmin: np.ndarray, bmax: np.ndarray,
         skip=np.asarray(nodes_skip, dtype=np.int32),
         order=np.asarray(order, dtype=np.int32),
     )
+
+
+def node_records(bmin: np.ndarray, bmax: np.ndarray, left: np.ndarray,
+                 right: np.ndarray, leaf_first: np.ndarray,
+                 leaf_count: np.ndarray) -> np.ndarray:
+    """A strictly binary tree (node 0 the root; per node its box, its
+    children `left` / `right`, and for a leaf, leaf_count > 0, the rows
+    [leaf_first, leaf_first + leaf_count) of the table the walk tests) as
+    the (1 + n_inner, NODE_W) float32 child-pair records that the CUDA
+    near-first walks read, one 64-byte record per step.  Record 0 holds
+    the root's box in the left slot and the root's reference at float 12;
+    then each internal node, in node order, gets one record: the left and
+    the right child's boxes (bmin xyz, bmax xyz each, floats 0-11) and
+    their references (floats 12 and 13, int32 bits).  A reference r > 0 is
+    the record of an internal node, r < 0 a leaf with ~r = leaf_first <<
+    LEAF_BITS | leaf_count."""
+    box = np.concatenate([np.asarray(bmin, np.float32),
+                          np.asarray(bmax, np.float32)], axis=1)
+    left, right = np.asarray(left), np.asarray(right)
+    first = np.asarray(leaf_first, np.int64)
+    count = np.asarray(leaf_count, np.int64)
+    leaf = count > 0
+    if (np.any(count[leaf] >= 1 << LEAF_BITS)
+            or np.any(first[leaf] >= 1 << (31 - LEAF_BITS))):
+        raise ValueError("a leaf too big for a packed reference")
+    inner = np.nonzero(~leaf)[0]
+    rec_of = np.zeros(len(box), np.int64)
+    rec_of[inner] = 1 + np.arange(len(inner))
+    ref = np.where(leaf, ~((first << LEAF_BITS) | count),
+                   rec_of).astype(np.int32)
+    recs = np.zeros((1 + len(inner), NODE_W), np.float32)
+    words = recs.view(np.int32)
+    recs[0, 0:6] = box[0]
+    words[0, 12] = ref[0]
+    recs[1:, 0:6] = box[left[inner]]
+    recs[1:, 6:12] = box[right[inner]]
+    words[1:, 12] = ref[left[inner]]
+    words[1:, 13] = ref[right[inner]]
+    return recs

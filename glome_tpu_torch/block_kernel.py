@@ -15,7 +15,8 @@ megakernel.finalize re-evaluates the winner differentiably.
     block_kernel.morton_order has no counterpart here), so consecutive
     runs of BP rows are spatially compact blocks and the table needs no
     permutation; a strictly binary BVH (accel.build_bvh2, one block per
-    leaf) is built over the block AABBs.
+    leaf) is built over the block AABBs and laid out as child-pair
+    records (accel.node_records).
   - pack_blocks / pack_cons: the (n_blocks, BP, F) row table and the
     flat constraint-member rows, from the scene tensors.
   - block_select: the hand-written CUDA kernel (csrc/block_select.cu) on
@@ -40,21 +41,26 @@ INF = INFINITY
 # prims per block.  On the TPU bp was the sublane width of the dense
 # leaf test, and it doubled until the block BVH fit SMEM
 # (glome_tpu MAX_BLOCKS = 2048, so bp = 64 at 100k triangles).  A CUDA
-# thread tests a leaf's rows one after another and reads the node tables
-# from L2, so there is no node cap and the leaf stays narrow: 8 rows (288
-# bytes of triangles) against the 2 box tests of each inner node.
-# Results do not depend on bp, except which prim wins an exact tie.
-BP = 8
-
-# per-thread traversal stack of csrc/block_select.cu (BLOCK_STACK_MAX);
-# the near-first walk holds at most depth - 1 entries
-STACK_MAX = 64
+# thread tests a leaf's rows one after another and reads the tree's
+# records from L2, so there is no node cap and the leaf stays narrow: 4
+# rows against the 2 box tests of each inner node.  On the H100, 4-row
+# blocks halve the triangle tests of mesh100k's rays against 8-row ones
+# and take a third less time (PERF.md).  Results do not depend on bp: an
+# exact tie goes to the lowest row, in the kernel as in the plain
+# version.
+BP = 4
 
 # the select table only carries the fields the t-kernel reads:
 # trianglenorm's n1..n3 are finalize's job (the triangle t-kernel reads
 # p1..p3 only), which halves a smooth mesh's table (7.2 -> 3.6 MB at 100k)
 SELECT_FIELDS = dict(FIELDS)
 SELECT_FIELDS["trianglenorm"] = FIELDS["triangle"]
+
+# floats per row of an untransformed triangle group: p1, p2, p3, then 3
+# zeros, so the kernel reads a row as three aligned 16-byte loads (as K3's
+# rows, mesh_kernel.TRI_F)
+TRI_F = 12
+TRI_PTYPES = ("triangle", "trianglenorm")
 
 # constraint descriptor widths (CC_W / CMB_W in csrc/cons.cuh)
 CC_W = 3     # positive, member_start, member_count
@@ -75,6 +81,8 @@ class BlockPlan:
         self.transformed = g.m_inv is not None
         self.nfld = _field_width(g.ptype)
         self.F = self.nfld + (12 if self.transformed else 0)
+        if self.ptype in TRI_PTYPES and not self.transformed:
+            self.F = TRI_F
         bmin, bmax = A.group_bounds(g)
         self.n_blocks = (P + BP - 1) // BP
         padP = self.n_blocks * BP - P
@@ -86,20 +94,15 @@ class BlockPlan:
             bmax = np.concatenate([bmax, np.repeat(bmax[-1:], padP, 0)])
         blk_min = bmin.reshape(self.n_blocks, BP, 3).min(axis=1)
         blk_max = bmax.reshape(self.n_blocks, BP, 3).max(axis=1)
-        bvh = A.build_bvh2(blk_min, blk_max, leaf_max=1)
-        # leaf nodes point at ORIGINAL block ids (table unpermuted)
-        ordb = np.asarray(bvh.order, np.int32)
-        self.nf = np.concatenate(
-            [np.asarray(bvh.bmin, np.float32),
-             np.asarray(bvh.bmax, np.float32)], axis=1).reshape(-1)
-        # per node: [left, right, leaf_block]; leaf_block = -1 for inner
-        leaf_blk = np.where(
-            bvh.leaf_count > 0,
-            ordb[np.clip(bvh.leaf_start, 0, self.n_blocks - 1)], -1)
-        self.ni = np.stack(
-            [np.asarray(bvh.left, np.int32),
-             np.asarray(bvh.right, np.int32),
-             leaf_blk.astype(np.int32)], axis=1).reshape(-1)
+        self.bvh = bvh = A.build_bvh2(blk_min, blk_max, leaf_max=1)
+        # a leaf's rows are its ORIGINAL block's (the table is unpermuted)
+        leaf = bvh.leaf_count > 0
+        self.leaf_block = np.where(
+            leaf, np.asarray(bvh.order)[np.clip(bvh.leaf_start, 0,
+                                                self.n_blocks - 1)], -1)
+        self.nodes = A.node_records(bvh.bmin, bvh.bmax, bvh.left, bvh.right,
+                                    self.leaf_block * BP,
+                                    np.where(leaf, BP, 0)).reshape(-1)
         self.n_nodes = bvh.n_nodes
         self.depth = bvh.depth
         # constraints: [(positive, [(ptype, cf_off, M, Fm, has_inv)])]
@@ -123,12 +126,12 @@ class BlockPlan:
         self.cdesc = encode_cons(self.cons)
 
     def device_tables(self, device):
-        """(nf, ni, cdesc) on `device`, cached per device."""
+        """(nodes, cdesc) on `device`, cached per device."""
         cache = self.__dict__.setdefault("_dev", {})
         key = str(device)
         if key not in cache:
             cache[key] = tuple(torch.as_tensor(a, device=device)
-                               for a in (self.nf, self.ni, self.cdesc))
+                               for a in (self.nodes, self.cdesc))
         return cache[key]
 
 
@@ -169,8 +172,12 @@ def _rows(ptype, ga, with_inv):
 
 def pack_blocks(plan: BlockPlan, params) -> torch.Tensor:
     """(n_blocks, BP, F) float32 table of the group's rows in packed
-    order, padded by copies of the last row (`params` detached)."""
+    order, padded by copies of the last row (`params` detached);
+    untransformed triangle rows end in TRI_F - 9 zeros."""
     rows = _rows(plan.ptype, params, plan.transformed)
+    if rows.shape[1] < plan.F:
+        rows = torch.cat([rows, rows.new_zeros((rows.shape[0],
+                                                plan.F - rows.shape[1]))], 1)
     padP = plan.n_blocks * BP - rows.shape[0]
     if padP:
         rows = torch.cat([rows, rows[-1:].expand(padP, -1)])
@@ -211,9 +218,6 @@ def _check_launch(plan, tab, cf, rays, seed):
             raise ValueError(f"{name} on {t.device}, rays on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if plan.depth > STACK_MAX:
-        raise ValueError(f"block BVH depth {plan.depth} exceeds the "
-                         f"kernel's stack bound {STACK_MAX}")
 
 
 def block_select(plan: BlockPlan, tab, cf, rays, seed, shadow: bool = False,
@@ -241,14 +245,14 @@ def block_select(plan: BlockPlan, tab, cf, rays, seed, shadow: bool = False,
     sel = torch.empty(n, dtype=torch.int32, device=rays.device)
     if n == 0:
         return t, sel
-    nf, ni, cdesc = plan.device_tables(rays.device)
+    nodes, cdesc = plan.device_tables(rays.device)
     lib = kernels.block_select_lib()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = lib.glome_block_select(
-            rays.data_ptr(), n, seed.data_ptr(), nf.data_ptr(),
-            ni.data_ptr(), tab.data_ptr(), plan.n_nodes, BP, plan.F,
-            PTYPE_CODE[plan.ptype], int(plan.transformed), plan.nfld,
+            rays.data_ptr(), n, seed.data_ptr(), nodes.data_ptr(),
+            tab.data_ptr(), plan.n_nodes, kernels.walk_stack(plan.depth),
+            plan.F, PTYPE_CODE[plan.ptype], int(plan.transformed), plan.nfld,
             cf.data_ptr(), cdesc.data_ptr(), int(bool(shadow)),
             t.data_ptr(), sel.data_ptr(), kernels.tally_ptr(tally),
             ctypes.c_void_p(stream))
@@ -286,10 +290,11 @@ def block_select_plain(plan: BlockPlan, tab, cf, rays, seed,
                        shadow: bool = False):
     """Plain torch version of block_select: every live ray against every
     table row (the kernel's BVH only culls), rays in chunks to bound
-    memory.  Candidate maths and the first-row tie rule are the
-    kernel's, so the two agree except on exact ties between blocks.
-    Shadow mode finds the nearest blocker; only sel2 >= 0 is meaningful
-    there, as in the kernel."""
+    memory.  Candidate maths and the tie rule are the kernel's: the best
+    candidate is the least (t, row), argmin's first row on an exact tie,
+    which the kernel's walk keeps whatever order it visits the blocks in,
+    so the two agree on every lane.  Shadow mode finds the nearest
+    blocker; only sel2 >= 0 is meaningful there, as in the kernel."""
     block_select_plain.calls += 1
     rows = tab.reshape(-1, plan.F)
     n = rays.shape[1]

@@ -12,144 +12,132 @@
 // Design.  One thread per ray.  The TPU kernel walked the tree once per
 // (8, 128) ray tile, choosing the near child by a vote of the tile's lanes
 // and testing a leaf densely as (bp, 128) candidates; here every ray walks
-// the tree alone, near child first, with a per-thread stack (bound
-// BLOCK_STACK_MAX, checked against the plan's depth before launch) and its
-// own best t for culling.  A leaf tests its bp rows in table order with a
-// strict <, so the first row wins a tie inside a block, and a later block
-// must be strictly nearer, as on the TPU.  Rows of transformed groups
-// carry 12 inverse-matrix floats (walk.cuh prim_candidates, 1/sqrt like
-// K1).  At most a few constraint clauses (block_kernel.BLOCK_CONS_MAX
-// rows) are evaluated at each candidate point from a small descriptor
-// table (csrc/cons.cuh eval_cons, as block_kernel.cons_ok does).  Shadow
-// mode is any-hit: the ray stops at its first blocker.
+// the tree alone with csrc/bvh_walk.cuh's near-first walk: the tree is
+// stored as 64-B child-pair records (accel.node_records; a leaf reference
+// packs its block's first row and bp), one float4 load round per step, and
+// the far children wait on a stack in dynamic shared memory sized from
+// the plan's depth (kernels.walk_stack).  The best candidate is the least
+// (t, row): a candidate at the best t wins when its row is lower, and the
+// walk culls only boxes that start beyond the best t, so the winner is
+// that of the plain version's argmin over rows, whatever the order in
+// which the walk visits the blocks.  Rows of transformed groups carry 12
+// inverse-matrix floats (walk.cuh prim_candidates, 1/sqrt like K1).  At
+// most a few constraint clauses (block_kernel.BLOCK_CONS_MAX rows) are
+// evaluated at each candidate point from a small descriptor table
+// (csrc/cons.cuh eval_cons, as block_kernel.cons_ok does).  Shadow mode is
+// any-hit: the ray stops at its first blocker.
 //
 // What bounds it on the card: the dependent loads of a divergent per-ray
-// walk (node boxes, then 36-byte triangle rows) out of the L2 cache: a
-// 100k-triangle mesh's table is 3.6 MB and its node tables about 1 MB,
-// both far under the H100's 50 MB L2.  Warp-coherent traversal and
-// shared-memory staging are later work.
+// walk out of the L2 cache: a 100k-triangle mesh's table is 3.6 MB and its
+// records about 1.6 MB, both far under the H100's 50 MB L2.  The records
+// cut a step from three rounds of loads (node ints, then two unaligned
+// boxes) to one.  Rows of untransformed triangles are padded to 12 floats
+// (block_kernel.TRI_F, as K3's rows) and read as three aligned float4
+// loads; every other row is read one float at a time by the generic
+// prim test.
 
 #include <cuda_runtime.h>
 
+#include "bvh_walk.cuh"
 #include "cons.cuh"
 #include "prims.cuh"
 #include "walk.cuh"
 
-#define BLOCK_STACK_MAX 64
-
 struct Group {
-  const float* __restrict__ nf;   // (n_nodes, 6) node boxes
-  const int* __restrict__ ni;     // (n_nodes, 3) [left, right, leaf_block]
-  const float* __restrict__ tab;  // (n_blocks * bp, F) rows
-  int n_nodes, bp, F, ptype, xf, nfld;
+  const float4* __restrict__ nodes;  // child-pair records
+  const float* __restrict__ tab;     // (n_blocks * bp, F) rows
+  int n_nodes, F, ptype, xf, nfld;
+  int tri4;   // rows are 12-float untransformed triangles, 16-B aligned
 };
 
-// one leaf block; returns true when a shadow ray is blocked
-template <class Ray>
-__device__ __forceinline__ bool leaf_test(const Group& G, const Cons& C,
-                                          int n_cl, int b, const Ray& r,
-                                          int shadow, float& bt, int& bs) {
-  for (int q = 0; q < G.bp; ++q) {
-    int row = b * G.bp + q;
-    float t0, t1;
-    prim_candidates(G.ptype, G.tab + (size_t)row * G.F, G.xf != 0, G.nfld, r,
-                    t0, t1);
-    bool v0 = (t0 > 0.0f) && (t0 < bt);
-    bool v1 = (t1 > 0.0f) && (t1 < bt);
-    if (n_cl > 0) cons_filter(C, r, t0, t1, v0, v1);
-    float tc = v0 ? t0 : (v1 ? t1 : GLOME_INF);
-    if (tc < bt) {
-      bt = tc;
-      bs = row * 2 + (v0 ? 0 : 1);
-      if (shadow) return true;
+// the rows of one leaf block against the best (bt, best row)
+struct BlockLeaf {
+  Group G;
+  Cons C;
+  int n_cl, shadow;
+  int best;   // row * 2 + slot of the best candidate, -1: the seed
+  template <class Ray>
+  __device__ __forceinline__ bool operator()(int first, int count,
+                                             const Ray& r, float& bt) {
+    for (int q = 0; q < count; ++q) {
+      int row = first + q;
+      float t0, t1;
+      if (G.tri4) {
+        const float4* r4 = (const float4*)G.tab + (size_t)row * 3;
+        float4 a = __ldg(r4), b = __ldg(r4 + 1), c = __ldg(r4 + 2);
+        float p[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+        r.count_prim();
+        triangle_t(p, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t0, t1);
+      } else {
+        prim_candidates(G.ptype, G.tab + (size_t)row * G.F, G.xf != 0,
+                        G.nfld, r, t0, t1);
+      }
+      int brow = best >> 1;   // -1 stays -1
+      bool v0 = (t0 > 0.0f) && beats(t0, row, bt, brow);
+      bool v1 = (t1 > 0.0f) && beats(t1, row, bt, brow);
+      if (n_cl > 0) cons_filter(C, r, t0, t1, v0, v1);
+      if (v0 || v1) {
+        bt = v0 ? t0 : t1;
+        best = row * 2 + (v0 ? 0 : 1);
+        if (shadow) return true;
+      }
     }
+    return false;
   }
-  return false;
-}
+};
 
-// kTally: also write each ray's work tally (walk.cuh RayT)
+// kTally: also write each ray's work tally (walk.cuh RayT).  At least 8
+// CTAs per SM: ptxas then may use 64 registers; left to itself it chose
+// 48 and spilled in the walk.
 template <bool kTally>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(WALK_THREADS, 8)
     block_select_kernel(const float* __restrict__ rays, int n,
                         const float* __restrict__ seeds, Group G, Cons C,
-                        int shadow, float* __restrict__ out_t,
+                        int stack, int shadow, float* __restrict__ out_t,
                         int* __restrict__ out_s, int* __restrict__ tally) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ int2 sstack[];
+  int i = blockIdx.x * WALK_THREADS + threadIdx.x;
   if (i >= n) return;
   float seed = seeds[i];
   float bt = seed;
-  int bs = -1;
   RayT<kTally> r = load_ray<kTally>(rays, n, i);
+  BlockLeaf leaf{G, C, C.desc[0], shadow, -1};
   // dead lanes (seed <= 0) fail every candidate: 0 < t < seed is empty
-  if (seed > 0.0f) {
-    int n_cl = C.desc[0];
-    int stack[BLOCK_STACK_MAX];
-    float snear[BLOCK_STACK_MAX];
-    int sp = 0;
-    // the root is not box-tested (as on the TPU): a leaf root is one block
-    int node = 0;
-    // every node is visited at most once
-    for (int steps = 0; steps <= G.n_nodes; ++steps) {
-      if (node >= 0) {
-        const int* nd = G.ni + node * 3;
-        if (nd[2] >= 0) {
-          if (leaf_test(G, C, n_cl, nd[2], r, shadow, bt, bs)) break;
-          node = -1;
-        } else {
-          int L = nd[0], R = nd[1];
-          float nL, nR;
-          bool hL = box_live(G.nf + L * 6, r, bt, nL);
-          bool hR = box_live(G.nf + R * 6, r, bt, nR);
-          if (hL && hR) {
-            bool lfirst = nL <= nR;
-            node = lfirst ? L : R;
-            if (sp < BLOCK_STACK_MAX) {
-              stack[sp] = lfirst ? R : L;
-              snear[sp] = lfirst ? nR : nL;
-              ++sp;
-            }
-          } else {
-            node = hL ? L : (hR ? R : -1);
-          }
-        }
-      }
-      if (node < 0) {
-        // pop the next deferred subtree still nearer than the best hit
-        while (sp > 0) {
-          --sp;
-          if (snear[sp] < bt) {
-            node = stack[sp];
-            break;
-          }
-        }
-        if (node < 0) break;
-      }
-    }
-  }
+  if (seed > 0.0f)
+    walk_pairs(G.nodes, G.n_nodes, r, Stack{sstack + threadIdx.x, stack}, bt,
+               leaf);
   out_t[i] = bt;
-  out_s[i] = bt < seed ? bs : -1;
+  out_s[i] = bt < seed ? leaf.best : -1;
   r.store_tally(tally, n, i);
 }
 
 extern "C" int glome_block_select(const float* rays, int n, const float* seeds,
-                                  const float* nf, const int* ni,
-                                  const float* tab, int n_nodes, int bp,
-                                  int F, int ptype, int xf, int nfld,
-                                  const float* cf, const int* cdesc,
-                                  int shadow, float* out_t, int* out_s,
-                                  int* tally, void* stream) {
+                                  const float* nodes, const float* tab,
+                                  int n_nodes, int stack, int F, int ptype,
+                                  int xf, int nfld, const float* cf,
+                                  const int* cdesc, int shadow, float* out_t,
+                                  int* out_s, int* tally, void* stream) {
   if (n <= 0) return 0;
-  Group G{nf, ni, tab, n_nodes, bp, F, ptype, xf, nfld};
+  if (((size_t)nodes & 15) != 0) return (int)cudaErrorMisalignedAddress;
+  if (stack < 1) return (int)cudaErrorInvalidValue;
+  int tri4 = (ptype == PT_TRIANGLE || ptype == PT_TRIANGLENORM) && !xf &&
+             F == 12 && ((size_t)tab & 15) == 0;
+  Group G{(const float4*)nodes, tab, n_nodes, F, ptype, xf, nfld, tri4};
   Cons C{cf, cdesc};
-  const int threads = 128;
-  int blocks = (n + threads - 1) / threads;
-  if (tally)
-    block_select_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        rays, n, seeds, G, C, shadow, out_t, out_s, tally);
-  else
-    block_select_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        rays, n, seeds, G, C, shadow, out_t, out_s, tally);
+  int blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
+  size_t smem = stack_bytes(stack);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (tally) {
+    err = allow_smem(block_select_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    block_select_kernel<true><<<blocks, WALK_THREADS, smem, s>>>(
+        rays, n, seeds, G, C, stack, shadow, out_t, out_s, tally);
+  } else {
+    err = allow_smem(block_select_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    block_select_kernel<false><<<blocks, WALK_THREADS, smem, s>>>(
+        rays, n, seeds, G, C, stack, shadow, out_t, out_s, tally);
+  }
   return (int)cudaGetLastError();
 }
-
-extern "C" int glome_block_stack_max() { return BLOCK_STACK_MAX; }

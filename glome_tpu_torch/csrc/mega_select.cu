@@ -29,10 +29,11 @@
 //     one 64-B, 16-B-aligned record per internal node holds both
 //     children's boxes and references, read as four float4 loads in one
 //     round per step;
-//   - the deferred subtrees wait on a short stack of packed (reference,
-//     near) pairs, MEGA_STACK_MAX deep (the wrapper refuses deeper trees),
-//     in shared memory (one column per thread; a per-thread local array
-//     was slower);
+//   - the deferred subtrees wait on a stack of packed (reference, near)
+//     pairs in dynamic shared memory (one column per thread; a
+//     per-thread local array was slower), max(depth - 1, 1) entries for
+//     the plan's deepest bvh2 tree (kernels.walk_stack), so any tree the
+//     card's shared memory holds is walked (csrc/bvh_walk.cuh Stack);
 //   - the descriptor table is staged in shared memory once per CTA (when
 //     it fits in MEGA_META_MAX ints), so the header fields every prim test
 //     reads come from there;
@@ -50,17 +51,13 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 
+#include "bvh_walk.cuh"
 #include "prims.cuh"
 #include "walk.cuh"
 
-// threads per CTA
-#define MEGA_THREADS 128
-// entries of the bvh2 walk's stack (megakernel.STACK_MAX)
-#define MEGA_STACK_MAX 32
-// descriptor ints staged in shared memory (larger tables stay in global)
+// descriptor ints staged in shared memory (larger tables stay in global;
+// megakernel.META_MAX)
 #define MEGA_META_MAX 4096
-// floats per child-pair record (megakernel.NODE_W)
-#define NODE_W 16
 #define GLOME_DELTA 1.0e-4f
 
 // descriptor layout: glome_tpu_torch.megakernel PH_* / CM_* / CV_*
@@ -125,17 +122,6 @@ struct Tabs {
   const float* __restrict__ bb;
   const float4* __restrict__ pbox;    // padded prim boxes, 8 floats each
   const int* __restrict__ meta;       // shared memory once staged
-};
-
-// the bvh2 walk's stack of deferred subtrees: packed (reference, near)
-struct Stack {
-  int2* e;   // this thread's column of the CTA's shared stack
-  __device__ __forceinline__ void put(int k, int ref, float near) {
-    e[k * MEGA_THREADS] = make_int2(ref, __float_as_int(near));
-  }
-  __device__ __forceinline__ int2 get(int k) const {
-    return e[k * MEGA_THREADS];
-  }
 };
 
 template <class Ray>
@@ -310,7 +296,7 @@ __device__ void run_dense(const Tabs& T, const int* ph, const Ray& r,
 }
 
 // near-child-first walk over the strictly binary bvh2 tree's child-pair
-// records (megakernel.node_records).  A reference r names a node: r > 0
+// records (megakernel.node_records, csrc/bvh_walk.cuh's layout).  A reference r names a node: r > 0
 // the record of an internal node, r < 0 a leaf (~r = leaf_start << 5 |
 // leaf_count), 0 none.  Record 0 holds the root's box and reference.
 template <class Ray>
@@ -360,7 +346,7 @@ __device__ void run_bvh2(const Tabs& T, const int* ph, const Ray& r,
       if (hL && hR) {
         bool lfirst = nL <= nR;
         node = lfirst ? L : R;
-        if (sp < MEGA_STACK_MAX) {
+        if (sp < st.cap) {
           st.put(sp, lfirst ? R : L, lfirst ? nR : nL);
           ++sp;
         }
@@ -519,23 +505,28 @@ __device__ void run_deferred(const Tabs& T, const int* ph, const Ray& r,
   }
 }
 
-// kTally: also write each ray's work tally, four rows (walk.cuh RayT)
+// kTally: also write each ray's work tally, four rows (walk.cuh RayT).
+// At least 6 CTAs per SM: ptxas then keeps the kernel at 80 registers;
+// left to itself (no static shared memory any more) it chose 64 and
+// spilled 1,304 B of loads, and K1 took 29% longer.
 template <bool kTally>
-__global__ void __launch_bounds__(MEGA_THREADS)
+__global__ void __launch_bounds__(WALK_THREADS, 6)
     mega_select_kernel(const float* __restrict__ rays, int n, Tabs T,
-                       int n_meta, int n_phases, int shadow,
+                       int n_meta, int n_phases, int stack, int shadow,
                        float* __restrict__ out_t, int* __restrict__ out_w,
                        int* __restrict__ out_a, int* __restrict__ tally) {
-  extern __shared__ int smeta[];
+  // dynamic shared memory: the bvh2 stack (`stack` entries per thread),
+  // then the staged descriptor table
+  extern __shared__ int2 sdyn[];
+  Stack st{sdyn + threadIdx.x, stack};
   if (n_meta <= MEGA_META_MAX) {
-    for (int k = threadIdx.x; k < n_meta; k += MEGA_THREADS)
+    int* smeta = (int*)(sdyn + (size_t)stack * WALK_THREADS);
+    for (int k = threadIdx.x; k < n_meta; k += WALK_THREADS)
       smeta[k] = T.meta[k];
     __syncthreads();
     T.meta = smeta;
   }
-  __shared__ int2 sstack[MEGA_STACK_MAX * MEGA_THREADS];
-  Stack st{sstack + threadIdx.x};
-  int i = blockIdx.x * MEGA_THREADS + threadIdx.x;
+  int i = blockIdx.x * WALK_THREADS + threadIdx.x;
   if (i >= n) return;
   RayT<kTally> r = load_ray<kTally>(rays, n, i);
   float seed = rays[6 * n + i];
@@ -571,23 +562,32 @@ extern "C" int glome_mega_select(const float* rays, int n, const float* pf,
                                  const int* ni, const float* nodes,
                                  const float* bb, const float* pbox,
                                  const int* meta, int n_meta, int n_phases,
-                                 int shadow, float* out_t, int* out_w,
-                                 int* out_a, int* tally, void* stream) {
+                                 int stack, int shadow, float* out_t,
+                                 int* out_w, int* out_a, int* tally,
+                                 void* stream) {
   if (n <= 0) return 0;
   if ((((size_t)nodes | (size_t)pbox) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
+  if (stack < 1) return (int)cudaErrorInvalidValue;
   Tabs T{pf, pi, nf, ni, (const float4*)nodes, bb, (const float4*)pbox,
          meta};
-  int blocks = (n + MEGA_THREADS - 1) / MEGA_THREADS;
-  size_t smem = n_meta <= MEGA_META_MAX ? (size_t)n_meta * sizeof(int) : 0;
+  int blocks = (n + WALK_THREADS - 1) / WALK_THREADS;
+  size_t smem = stack_bytes(stack) +
+                (n_meta <= MEGA_META_MAX ? (size_t)n_meta * sizeof(int) : 0);
   cudaStream_t s = (cudaStream_t)stream;
-  if (tally)
-    mega_select_kernel<true><<<blocks, MEGA_THREADS, smem, s>>>(
-        rays, n, T, n_meta, n_phases, shadow, out_t, out_w, out_a, tally);
-  else
-    mega_select_kernel<false><<<blocks, MEGA_THREADS, smem, s>>>(
-        rays, n, T, n_meta, n_phases, shadow, out_t, out_w, out_a, tally);
+  cudaError_t err;
+  if (tally) {
+    err = allow_smem(mega_select_kernel<true>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mega_select_kernel<true><<<blocks, WALK_THREADS, smem, s>>>(
+        rays, n, T, n_meta, n_phases, stack, shadow, out_t, out_w, out_a,
+        tally);
+  } else {
+    err = allow_smem(mega_select_kernel<false>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mega_select_kernel<false><<<blocks, WALK_THREADS, smem, s>>>(
+        rays, n, T, n_meta, n_phases, stack, shadow, out_t, out_w, out_a,
+        tally);
+  }
   return (int)cudaGetLastError();
 }
-
-extern "C" int glome_mega_stack_max() { return MEGA_STACK_MAX; }

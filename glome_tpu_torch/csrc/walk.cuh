@@ -97,20 +97,29 @@ __device__ __forceinline__ void prim_candidates(int ptype, const float* prm,
   if (fabsf(t1) < GLOME_INF) t1 *= ils;
 }
 
-// slab test of an AABB (x0, y0, z0) - (x1, y1, z1) against the ray and a
-// t limit
+// the ray's entry and exit distances of an AABB (x0, y0, z0) - (x1, y1,
+// z1): one box test
 template <class Ray>
-__device__ __forceinline__ bool box_live6(float x0, float y0, float z0,
-                                          float x1, float y1, float z1,
-                                          const Ray& r, float lim,
-                                          float& near) {
+__device__ __forceinline__ void box_span(float x0, float y0, float z0,
+                                         float x1, float y1, float z1,
+                                         const Ray& r, float& near,
+                                         float& far) {
   r.count_box();
   float t1x = (x0 - r.ox) * r.ivx, t2x = (x1 - r.ox) * r.ivx;
   float t1y = (y0 - r.oy) * r.ivy, t2y = (y1 - r.oy) * r.ivy;
   float t1z = (z0 - r.oz) * r.ivz, t2z = (z1 - r.oz) * r.ivz;
   near = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-  float far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
-                    fmaxf(t1z, t2z));
+  far = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+}
+
+// slab test of an AABB against the ray and a t limit
+template <class Ray>
+__device__ __forceinline__ bool box_live6(float x0, float y0, float z0,
+                                          float x1, float y1, float z1,
+                                          const Ray& r, float lim,
+                                          float& near) {
+  float far;
+  box_span(x0, y0, z0, x1, y1, z1, r, near, far);
   return (near <= far) && (far > 0.0f) && (near < lim);
 }
 

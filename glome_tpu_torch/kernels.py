@@ -35,9 +35,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 
 # each library: its .cu source first, then the headers it includes
-MEGA_SOURCES = ("mega_select.cu", "prims.cuh", "walk.cuh")
-BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
-MESH_SOURCES = ("mesh_block_select.cu", "prims.cuh", "walk.cuh")
+MEGA_SOURCES = ("mega_select.cu", "prims.cuh", "walk.cuh", "bvh_walk.cuh")
+BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh", "cons.cuh",
+                 "bvh_walk.cuh")
+MESH_SOURCES = ("mesh_block_select.cu", "prims.cuh", "walk.cuh",
+                "bvh_walk.cuh")
 DENSE_SOURCES = ("dense_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
 BVH_SOURCES = ("bvh_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
 MICRO_PRIMS_SOURCES = ("micro_prims.cu", "micro.cuh")
@@ -47,6 +49,33 @@ LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
              "glome_bvh": BVH_SOURCES,
              "glome_micro_prims": MICRO_PRIMS_SOURCES,
              "glome_micro_kwide": MICRO_KWIDE_SOURCES}
+
+# The near-first walks of K1-K3 (csrc/bvh_walk.cuh) keep their deferred
+# subtrees on a stack in dynamic shared memory: WALK_THREADS threads per
+# CTA, one 8-byte (reference, near) entry each per level.  A CTA may hold
+# SMEM_BLOCK_MAX bytes of shared memory on an H100 (232,448 of the SM's
+# 256 KB, above 48 KB only after opting in), so at most 227 entries.
+WALK_THREADS = 128
+STACK_ENTRY_BYTES = 8
+SMEM_BLOCK_MAX = 232_448
+
+
+def walk_stack(depth: int, reserved: int = 0) -> int:
+    """Entries per thread of the shared stack of a near-first walk over
+    trees at most `depth` deep (the root at depth 1): the walk holds at
+    most one deferred sibling per level above its leaf, depth - 1
+    entries (at least 1).  `reserved`: bytes of the CTA's shared memory
+    the kernel also uses.  Raises ValueError where the card's shared
+    memory cannot hold the stack."""
+    entries = max(int(depth) - 1, 1)
+    need = entries * WALK_THREADS * STACK_ENTRY_BYTES + reserved
+    if need > SMEM_BLOCK_MAX:
+        raise ValueError(
+            f"a tree of depth {depth} needs a {entries}-entry walk stack, "
+            f"{need} bytes of shared memory per CTA; the card holds "
+            f"{SMEM_BLOCK_MAX}")
+    return entries
+
 
 # loaded libraries by name (each is built, hashed and loaded once per
 # process: the wrappers look their library up on every launch); the build
@@ -118,34 +147,21 @@ _vp, _i32 = ctypes.c_void_p, ctypes.c_int
 
 def _setup_mega(lib):
     lib.glome_mega_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _vp, _vp,
-                                      _vp, _vp, _vp, _i32, _i32, _i32, _vp,
-                                      _vp, _vp, _vp, _vp]
+                                      _vp, _vp, _vp, _i32, _i32, _i32, _i32,
+                                      _vp, _vp, _vp, _vp, _vp]
     lib.glome_mega_select.restype = _i32
-    lib.glome_mega_stack_max.argtypes = []
-    lib.glome_mega_stack_max.restype = _i32
-    from .megakernel import STACK_MAX
-    if lib.glome_mega_stack_max() != STACK_MAX:
-        raise RuntimeError("csrc/mega_select.cu MEGA_STACK_MAX != "
-                           "megakernel.STACK_MAX")
 
 
 def _setup_block(lib):
-    lib.glome_block_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _vp, _i32,
-                                       _i32, _i32, _i32, _i32, _i32, _vp,
-                                       _vp, _i32, _vp, _vp, _vp, _vp]
+    lib.glome_block_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _i32, _i32,
+                                       _i32, _i32, _i32, _i32, _vp, _vp,
+                                       _i32, _vp, _vp, _vp, _vp]
     lib.glome_block_select.restype = _i32
-    lib.glome_block_stack_max.argtypes = []
-    lib.glome_block_stack_max.restype = _i32
-    from .block_kernel import STACK_MAX
-    if lib.glome_block_stack_max() != STACK_MAX:
-        raise RuntimeError("csrc/block_select.cu BLOCK_STACK_MAX != "
-                           "block_kernel.STACK_MAX")
 
 
 def _setup_mesh(lib):
-    lib.glome_mesh_block_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _i32,
-                                            _vp, _i32, _i32, _vp, _vp, _vp,
-                                            _vp]
+    lib.glome_mesh_block_select.argtypes = [_vp, _i32, _vp, _vp, _i32, _vp,
+                                            _i32, _i32, _vp, _vp, _vp, _vp]
     lib.glome_mesh_block_select.restype = _i32
 
 

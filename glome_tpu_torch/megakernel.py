@@ -70,14 +70,12 @@ BVH2_LEAF = 16
 # constraint member sets above this size get a point-query BVH
 CONS_BVH_MIN = 48
 
-# per-thread traversal stack of the CUDA kernel (MEGA_STACK_MAX in
-# csrc/mega_select.cu); the near-first walk holds at most depth - 1
-# entries, and the wrapper raises for deeper trees (TestScene's deepest
-# bvh2 tree has depth 15)
-STACK_MAX = 32
-# floats per child-pair record of a bvh2 tree (NODE_W in
-# csrc/mega_select.cu): both children's boxes, then their references
-NODE_W = 16
+# descriptor ints the CUDA kernel stages in shared memory beside its walk
+# stack (MEGA_META_MAX in csrc/mega_select.cu); larger tables stay in
+# global memory
+META_MAX = 4096
+# floats per child-pair record of a bvh2 tree (accel.node_records)
+NODE_W = A.NODE_W
 # rows of K1's work tally: box tests, prim tests, point-in-node tests of
 # member-set point BVHs, member inside tests
 TALLY_ROWS = 4
@@ -433,12 +431,12 @@ class MegaPlan:
     # per-global-prim combo id / row within the combo's concat tables
     cid_all: np.ndarray = None
     row_all: np.ndarray = None
-    # oversized flat-triangle groups that glome_tpu serves with K3
-    # (mesh_kernel); not ported yet (see MEGA_EXT_MIN)
+    # oversized flat-triangle groups served by K3 (mesh_kernel), as in
+    # glome_tpu (see MEGA_EXT_MIN)
     external: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
-    # big groups that glome_tpu serves with K2 (block_kernel); not
-    # ported yet (see BLOCK_MIN)
+    # big groups served by K2 (block_kernel), as in glome_tpu (see
+    # BLOCK_MIN)
     blocks: List[Tuple[int, int]] = dataclasses.field(
         default_factory=list)
     # [(phase index, si, gi, PF row order)] of the bvh2 phases whose
@@ -858,15 +856,11 @@ CV_W = 6    # ptype, pf offset, F, has_inv, gprim, nfld
 
 
 def node_records(plan: MegaPlan):
-    """The bvh2 trees as child-pair records, the table csrc/mega_select.cu
-    walks: (float32 (R * NODE_W,) table, {phase index: first record}),
-    cached on the plan.  Record 0 of a tree holds its root's box in the
-    left slot and the root's reference at float 12; then each internal
-    node (in node order) gets one record: the left and the right child's
-    boxes (bmin xyz, bmax xyz each, floats 0-11) and their references
-    (floats 12 and 13, int32 bits).  A reference r > 0 is the record of an
-    internal node within the tree, r < 0 a leaf with ~r = leaf_start << 5
-    | leaf_count.  plan.nf / plan.ni keep the per-node layout."""
+    """The bvh2 trees as child-pair records (accel.node_records; a leaf's
+    rows are its prims' PF rows within the phase), the table
+    csrc/mega_select.cu walks: (float32 (R * NODE_W,) table, {phase index:
+    first record}), cached on the plan.  plan.nf / plan.ni keep the
+    per-node layout."""
     cached = getattr(plan, "_node_tab", None)
     if cached is not None:
         return cached
@@ -877,23 +871,8 @@ def node_records(plan: MegaPlan):
         M = ph.n_nodes
         box = plan.nf[ph.nf_base:ph.nf_base + 6 * M].reshape(M, 6)
         ni = plan.ni[ph.ni_base:ph.ni_base + 4 * M].reshape(M, 4)
-        leaf = ni[:, 3] > 0
-        if np.any(ni[leaf, 3] >= 32) or np.any(ni[leaf, 2] >= 1 << 26):
-            raise ValueError("a bvh2 leaf too big for a packed reference")
-        inner = np.nonzero(~leaf)[0]
-        rec_of = np.zeros(M, np.int64)
-        rec_of[inner] = 1 + np.arange(len(inner))
-        packed = (ni[:, 2].astype(np.int64) << 5) | ni[:, 3]
-        ref = np.where(leaf, ~packed, rec_of).astype(np.int32)
-        recs = np.zeros((1 + len(inner), NODE_W), np.float32)
-        words = recs.view(np.int32)
-        recs[0, 0:6] = box[0]
-        words[0, 12] = ref[0]
-        left, right = ni[inner, 0], ni[inner, 1]
-        recs[1:, 0:6] = box[left]
-        recs[1:, 6:12] = box[right]
-        words[1:, 12] = ref[left]
-        words[1:, 13] = ref[right]
+        recs = A.node_records(box[:, :3], box[:, 3:], ni[:, 0], ni[:, 1],
+                              ni[:, 2], ni[:, 3])
         bases[i] = off
         off += len(recs)
         parts.append(recs.reshape(-1))
@@ -1101,11 +1080,17 @@ def _check_launch(tables: PlanTables, rays):
             raise ValueError(f"{name} must be contiguous")
     if not rays.is_contiguous():
         raise ValueError("rays must be contiguous")
-    depth = max([ph.depth for ph in tables.plan.phases
-                 if ph.kind == "bvh2"], default=0)
-    if depth > STACK_MAX:
-        raise ValueError(f"bvh2 depth {depth} exceeds the kernel's "
-                         f"stack bound {STACK_MAX}")
+
+
+def walk_stack(plan: MegaPlan) -> int:
+    """Entries per thread of the CUDA kernel's shared walk stack for the
+    plan's deepest bvh2 tree, beside the staged descriptor table
+    (kernels.walk_stack; raises where the card cannot hold it)."""
+    from .kernels import walk_stack as stack_for
+    depth = max([ph.depth for ph in plan.phases if ph.kind == "bvh2"],
+                default=1)
+    n_meta = len(encode_phases(plan))
+    return stack_for(depth, 4 * n_meta if n_meta <= META_MAX else 0)
 
 
 def mega_select(tables: PlanTables, rays, shadow: bool = False,
@@ -1147,8 +1132,8 @@ def mega_select(tables: PlanTables, rays, shadow: bool = False,
             tables.nf.data_ptr(), tables.ni.data_ptr(),
             tables.nodes.data_ptr(), tables.bb.data_ptr(),
             tables.pbox.data_ptr(), tables.phases.data_ptr(),
-            tables.phases.numel(),
-            len(tables.plan.phases), int(bool(shadow)),
+            tables.phases.numel(), len(tables.plan.phases),
+            walk_stack(tables.plan), int(bool(shadow)),
             t.data_ptr(), wid.data_ptr(), aux.data_ptr(),
             kernels.tally_ptr(tally), ctypes.c_void_p(stream))
     kernels.check_launch(lib, err, "mega_select")

@@ -5,13 +5,16 @@ whose select table (9 floats a triangle) exceeds
 megakernel.BLOCK_VMEM_MAX to its Pallas mesh kernel
 (glome_tpu/mesh_kernel.py:mesh_block_select), which kept the table in
 HBM and DMA'd only the leaf blocks a ray tile could reach.  The port
-keeps that contract -- a skip-link BVH (accel.build_bvh) over blocks of
-triangles, the table stored in leaf order, the winner an index into
-that permuted table mapped back through plan.sel_to_local -- and sizes
-the blocks for a CUDA thread instead of a TPU lane row.
+keeps that contract -- a BVH over blocks of triangles, the table stored
+in leaf order, the winner an index into that permuted table mapped back
+through plan.sel_to_local -- and sizes the blocks for a CUDA thread
+instead of a TPU lane row.  Its tree is strictly binary
+(accel.build_bvh2, laid out as accel.node_records), so the kernel walks
+it near child first with K2's walk (csrc/bvh_walk.cuh), where glome_tpu
+walks a skip-link tree.
 
   - MeshBlockPlan / get_block_plan: the host plan of one group;
-  - pack_tri_blocks: the (n_blocks * BP, 9) permuted triangle table;
+  - pack_tri_blocks: the (n_blocks * BP, TRI_F) permuted triangle table;
   - mesh_block_select: the hand-written CUDA kernel
     (csrc/mesh_block_select.cu) on CUDA tensors, mesh_block_select_plain
     on CPU tensors;
@@ -37,16 +40,21 @@ INF = INFINITY
 # triangles per block and blocks per BVH leaf.  glome_tpu used 128 x 4:
 # one lane row per block and a DMA per block, so a leaf moved 512
 # triangles at once.  A CUDA thread tests a leaf's rows one after another
-# from L2, so leaves stay small: at most 16 triangles (576 bytes).
-BP = 8
-BLOCK_LEAF_MAX = 2
-# p1, p2, p3: the fields the triangle t-kernel reads (TRI_F in the kernel)
-TRI_F = 9
+# from L2, so leaves stay small: one block of 4 triangles (192 bytes).  Of
+# 4 or 8 rows a block and 1 or 2 blocks a leaf, this was the fastest on
+# the H100, and 8 x 2 the slowest (PERF.md).
+BP = 4
+BLOCK_LEAF_MAX = 1
+# floats per row (TRI_F in the kernel): p1, p2, p3, the fields the
+# triangle t-kernel reads, then 3 zeros, so a row is three aligned
+# 16-byte loads
+TRI_F = 12
 
 
 class MeshBlockPlan:
-    """Host-side static plan for one group: skip-link block BVH and the
-    permutation of triangle rows into leaf order."""
+    """Host-side static plan for one group: a binary BVH over blocks of
+    BP triangles (at most BLOCK_LEAF_MAX blocks per leaf) as child-pair
+    records, and the permutation of triangle rows into its leaf order."""
 
     def __init__(self, g):
         P = g.size
@@ -60,16 +68,15 @@ class MeshBlockPlan:
             bmax = np.concatenate([bmax, np.repeat(bmax[-1:], padP, 0)])
         blk_min = bmin.reshape(self.n_blocks, BP, 3).min(axis=1)
         blk_max = bmax.reshape(self.n_blocks, BP, 3).max(axis=1)
-        bvh = A.build_bvh(blk_min, blk_max, leaf_max=BLOCK_LEAF_MAX)
+        self.bvh = bvh = A.build_bvh2(blk_min, blk_max,
+                                      leaf_max=BLOCK_LEAF_MAX)
         block_order = np.asarray(bvh.order, np.int64)  # perm of blocks
-        self.nf = np.concatenate(
-            [np.asarray(bvh.bmin, np.float32),
-             np.asarray(bvh.bmax, np.float32)], axis=1).reshape(-1)
-        self.ni = np.stack(
-            [np.asarray(bvh.skip, np.int32),
-             np.asarray(bvh.leaf_start, np.int32),
-             np.asarray(bvh.leaf_count, np.int32)], axis=1).reshape(-1)
+        # a leaf's blocks are contiguous in leaf order: one run of rows
+        self.nodes = A.node_records(bvh.bmin, bvh.bmax, bvh.left, bvh.right,
+                                    bvh.leaf_start * BP,
+                                    bvh.leaf_count * BP).reshape(-1)
         self.n_nodes = bvh.n_nodes
+        self.depth = bvh.depth
         # permuted-row -> group-local triangle (-1 = padding), and the
         # row gather that builds the permuted table
         self.row_perm = (np.repeat(block_order * BP, BP)
@@ -79,14 +86,14 @@ class MeshBlockPlan:
         self.padP = padP
 
     def device_tables(self, device):
-        """(nf, ni, row_perm, sel_to_local) on `device`, cached per
+        """(nodes, row_perm, sel_to_local) on `device`, cached per
         device."""
         cache = self.__dict__.setdefault("_dev", {})
         key = str(device)
         if key not in cache:
             cache[key] = tuple(
                 torch.as_tensor(a, device=device) for a in
-                (self.nf, self.ni, self.row_perm, self.sel_to_local))
+                (self.nodes, self.row_perm, self.sel_to_local))
         return cache[key]
 
 
@@ -100,13 +107,14 @@ def get_block_plan(g) -> MeshBlockPlan:
 
 
 def pack_tri_blocks(plan: MeshBlockPlan, params) -> torch.Tensor:
-    """(n_blocks * BP, 9) float32 rows [p1, p2, p3] in leaf order,
-    padded with zero rows (`params` detached)."""
+    """(n_blocks * BP, TRI_F) float32 rows [p1, p2, p3, 0, 0, 0] in leaf
+    order, padded with zero rows (`params` detached)."""
     rows = torch.cat([params[k] for k in ("p1", "p2", "p3")],
                      dim=-1).to(torch.float32)
+    rows = torch.cat([rows, rows.new_zeros((rows.shape[0], TRI_F - 9))], -1)
     if plan.padP:
         rows = torch.cat([rows, rows.new_zeros((plan.padP, TRI_F))])
-    _nf, _ni, row_perm, _s2l = plan.device_tables(rows.device)
+    _nodes, row_perm, _s2l = plan.device_tables(rows.device)
     return rows[row_perm].contiguous()
 
 
@@ -155,13 +163,13 @@ def mesh_block_select(plan: MeshBlockPlan, tri, rays, seed,
     sel = torch.empty(n, dtype=torch.int32, device=rays.device)
     if n == 0:
         return t, sel
-    nf, ni, _perm, _s2l = plan.device_tables(rays.device)
+    nodes, _perm, _s2l = plan.device_tables(rays.device)
     lib = kernels.mesh_select_lib()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = lib.glome_mesh_block_select(
-            rays.data_ptr(), n, seed.data_ptr(), nf.data_ptr(),
-            ni.data_ptr(), plan.n_nodes, tri.data_ptr(), BP,
+            rays.data_ptr(), n, seed.data_ptr(), nodes.data_ptr(),
+            plan.n_nodes, tri.data_ptr(), kernels.walk_stack(plan.depth),
             int(bool(shadow)), t.data_ptr(), sel.data_ptr(),
             kernels.tally_ptr(tally), ctypes.c_void_p(stream))
     kernels.check_launch(lib, err, "mesh_block_select")
@@ -175,11 +183,11 @@ mesh_block_select.launches = 0
 def mesh_block_select_plain(plan: MeshBlockPlan, tri, rays, seed,
                             shadow: bool = False):
     """Plain torch version of mesh_block_select: every live ray against
-    every permuted row, rays in chunks to bound memory.  The kernel's
-    skip-link walk visits leaves in table order and keeps the first row
-    of a tie, as argmin does here, so the two agree unless float
-    rounding in a box test culls a hit.  Shadow mode finds the nearest
-    blocker; only sel >= 0 is meaningful there."""
+    every permuted row, rays in chunks to bound memory.  The best
+    candidate is the least (t, row), the first row of an exact tie as
+    argmin takes it here; the kernel's near-first walk keeps the same
+    row whatever order it visits the leaves in.  Shadow mode finds the
+    nearest blocker; only sel >= 0 is meaningful there."""
     mesh_block_select_plain.calls += 1
     n = rays.shape[1]
     bt = seed.clone()
@@ -215,5 +223,5 @@ def mesh_block_pass(sc, garrs, gi, rays, seed, shadow: bool,
           if k in ("p1", "p2", "p3")}
     tri = pack_tri_blocks(plan, ga)
     t, sel = select(plan, tri, rays, seed.detach().contiguous(), shadow)
-    s2l = plan.device_tables(rays.device)[3]
+    s2l = plan.device_tables(rays.device)[2]
     return t, torch.where(sel >= 0, s2l[torch.clamp(sel, min=0).long()], -1)

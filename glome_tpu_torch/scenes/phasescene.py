@@ -183,3 +183,87 @@ def block_rays(n, seed=0, span=6.0):
     d = at - o
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
     return o, d
+
+
+def chain_scene(n=200, ratio=2.0 ** -0.25, P=None):
+    """A plain group of n spheres whose centres (ratio^k, 0, 0) and radii
+    0.1 ratio^k shrink geometrically, built with package P.  The BVH
+    builders split at spatial midpoints, so each level peels off the few
+    largest spheres and the tree's depth grows with n instead of log2 n:
+    the default 200 spheres give K1's bvh2 tree depth 47, and 320 spheres
+    at ratio 2^(-1/6) give K2's block tree (4-sphere blocks) depth 80,
+    the smallest sphere still 1e-16 across, which float32 tells apart.
+    Spheres are listed smallest first, so the compiler's Morton order
+    (which ties the tiny ones) keeps every block a run of neighbours."""
+    P = _package(P)
+    return P.group([P.sphere((ratio ** k, 0.0, 0.0), 0.1 * ratio ** k)
+                    for k in range(n - 1, -1, -1)])
+
+
+def chain_rays(n, seed=0, n_spheres=200, ratio=2.0 ** -0.25):
+    """(o, d) float32 (n, 3) rays falling onto chain_scene from y = 2x
+    over points x log-uniformly spread along the chain, within about a
+    radius of its axis: the walks reach its deepest nodes, and the
+    height, in scale with the sphere below, keeps even the smallest
+    spheres' hits resolved in float32."""
+    rng = np.random.default_rng(seed)
+    x = ratio ** rng.uniform(-1.0, n_spheres, n)
+    o = np.stack([x, 2.0 * x, rng.uniform(-0.12, 0.12, n) * x], axis=1)
+    d = np.stack([rng.uniform(-0.01, 0.01, n) * x, -np.ones(n),
+                  np.zeros(n)], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def tie_grid_scene(n=16, P=None):
+    """A flat n x n grid of unit quads in the y = 0 plane (x, z in
+    [-n/2, n/2]), two flat triangles each, as one shared-vertex mesh
+    built with package P.  Every coordinate is a small integer, so a
+    vertical ray through a shared edge or vertex (tie_grid_rays) meets
+    each triangle around it at bit-exactly the same t: exact ties between
+    table rows, in one block and across blocks."""
+    P = _package(P)
+    h = n // 2
+    xs = np.arange(-h, n - h + 1, dtype=np.float64)
+    V = np.stack(np.meshgrid(xs, [0.0], xs, indexing="ij"),
+                 axis=-1).reshape(-1, 3)
+
+    def vid(i, j):
+        return i * (n + 1) + j
+    tris = []
+    for i in range(n):
+        for j in range(n):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            tris += [[a, b, c, -1, -1, -1, -1, -1],
+                     [a, c, d, -1, -1, -1, -1, -1]]
+    return P.mesh(V, None, np.asarray(tris, np.int32), cast_shadows=True)
+
+
+def tie_grid_rays(n, seed=0, grid=16):
+    """(o, d) float32 (n, 3) rays onto tie_grid_scene: a quarter straight
+    down through grid vertices, a quarter through points of the grid
+    lines, a quarter through points of the quads' diagonals (each such
+    ray ties the triangles that share the point), and a quarter tilted at
+    random points (no ties)."""
+    rng = np.random.default_rng(seed)
+    h = grid // 2
+    k = n // 4
+    vert = rng.integers(-h, h + 1, (k, 2)).astype(np.float64)
+    line = rng.integers(-h, h + 1, (k, 2)).astype(np.float64)
+    line[:, 1] += rng.integers(0, 4, k) / 4.0 * (line[:, 1] < h)
+    line = np.where(rng.random((k, 1)) < 0.5, line, line[:, ::-1])
+    diag = rng.integers(-h, h, (k, 2)) + (rng.integers(1, 4, k) / 4.0)[:, None]
+    pts = np.concatenate([vert, line, diag])
+    down = np.tile([0.0, -1.0, 0.0], (len(pts), 1))
+    m = n - len(pts)
+    rnd = rng.uniform(-h, h, (m, 2))
+    tilt = np.stack([rng.uniform(-0.3, 0.3, m), -np.ones(m),
+                     rng.uniform(-0.3, 0.3, m)], axis=1)
+    tilt /= np.linalg.norm(tilt, axis=1, keepdims=True)
+    at = np.concatenate([pts, rnd])
+    at = np.stack([at[:, 0], np.zeros(n), at[:, 1]], axis=1)
+    d = np.concatenate([down, tilt])
+    # from y = 3 (exactly 3 above the target for the vertical rays)
+    o = at - d * (3.0 / -d[:, 1:2])
+    return o.astype(np.float32), d.astype(np.float32)

@@ -1,32 +1,46 @@
-"""K1 and K4 against an earlier commit's kernels on the card, in turns,
-and K1's cost per phase.
+"""K1-K4 against an earlier commit's kernels on the card, in turns, and
+K1's cost per phase.
 
     python -m glome_tpu_torch.tools.kernel_ab --old build/parent
 
 `--old` names an unpacked checkout of the earlier commit (for example
-`git archive <commit>` unpacked into the gitignored build/).  Its
-csrc/mega_select.cu and csrc/dense_select.cu are built with this
-checkout's nvcc flags and called through their C entries with the
-arguments of OLD_ENTRIES: K1 with the per-node bvh2 tables (nf, ni) and
-a (2, N) tally, K4 with the per-128-prim block_aabbs table.  These are
-the entries of the commit before the child-pair records and the per-prim
-cull; the tool refuses an --old tree whose sources declare them
-otherwise.
+`git archive <commit>` unpacked into the gitignored build/).  The tool
+compares every kernel whose earlier C entry that tree declares, as one
+of the parameter lists of OLD_ENTRIES:
 
-On TestScene at 720x480 it prints, with the card's name, power limit and
-SM clock:
+  - K1 (csrc/mega_select.cu) before the child-pair records (per-node bvh2
+    tables nf/ni, a (2, N) tally), or with the records and a fixed
+    32-entry stack (no stack argument);
+  - K4 (csrc/dense_select.cu) with per-128-prim block_aabbs;
+  - K2 (csrc/block_select.cu) walking per-node tables (nf, ni = [left,
+    right, leaf block]) with a fixed stack (the tool rebuilds them,
+    per_node_tables);
+  - K3 (csrc/mesh_block_select.cu) walking a skip-link tree over its
+    blocks, with 9-float rows in that tree's leaf order (the tool
+    rebuilds that plan, skip_link_plan).
+
+It refuses (exit 2) an --old tree that declares none of them.  The old
+sources are built with this checkout's nvcc flags.  It prints, with the
+card's name, power limit and SM clock:
 
   - each build's ptxas registers, spills and shared memory;
-  - K1 on the L0 batch and the first shadow batch: old and new equal on
-    every lane (t, winner, aux; in shadow mode which rays are blocked),
-    then their device times (tools.device_time) in turns old, new, new,
-    old;
-  - K1's cost per phase for old and new (`attribution`);
-  - both K1 work tallies per ray;
-  - K4 on each dense group of the group route with the L0 batch: old and
-    new equal, their tallies, device times old, new, new, old, and the
-    new kernel through its C entry on old's inputs (raw: without what the
-    wrapper launches) against old: raw, old, old, raw.
+  - K1 on TestScene 720x480's L0 batch and first shadow batch: old and
+    new equal on every lane (t, winner, aux; in shadow mode which rays
+    are blocked), their device times (tools.device_time) in turns old,
+    new, new, old, K1's cost per phase for both (`attribution`) and both
+    work tallies per ray;
+  - K4 on each dense group of the group route with TestScene's L0 batch:
+    old and new equal, their tallies, device times old, new, new, old,
+    and the new kernel through its C entry on old's inputs (raw: without
+    what the wrapper launches) against old: raw, old, old, raw;
+  - K2 on mesh_scene(100_000) and K3 on mesh_scene(250_000), on their
+    1920x1080 L0 batch and its shadow batch: old and new equal t on
+    every lane and equal group-local winners except on exact t ties (the
+    old walks kept the first row they visited, the new ones the lowest;
+    the count of such ties is printed), in shadow mode which rays are
+    blocked; device times old, new, new, old; both tallies per ray.  The
+    old K2 runs on its own 8-row blocks, and again on the new kernel's
+    blocks (the same tree: the walks alone compared), in turns too.
 
 Everything it prints also goes to --json (default
 build/kernel_ab.json).  It needs a card.
@@ -46,43 +60,86 @@ import sys
 import numpy as np
 import torch
 
+from .. import accel as A
+from .. import block_kernel as BK
 from .. import group_kernels as GK
 from .. import intersect as TI
 from .. import kernels
 from .. import megakernel as MK
+from .. import mesh_kernel as MSH
+from ..compile import group_device_params
 from .device_time import device_time
 
-# the earlier commit's C entries, source -> (name, parameter list as its
-# source declares it); the tool calls them with these arguments
+# the earlier commits' C entries, source -> {design: (name, parameter list
+# as its source declares it)}; the tool calls an entry with these
+# arguments
 OLD_ENTRIES = {
-    "mega_select.cu": (
-        "glome_mega_select",
-        "const float* rays, int n, const float* pf, const int* pi, "
-        "const float* nf, const int* ni, const float* bb, const int* meta, "
-        "int n_phases, int shadow, float* out_t, int* out_w, int* out_a, "
-        "int* tally, void* stream"),
-    "dense_select.cu": (
-        "glome_dense_select",
-        "const float* rays, int n, const float* seeds, const float* tab, "
-        "const float* vis, const float* bbox, int P, int FX, int nfld, "
-        "int ptype, int xf, const float* cf, const int* cdesc, int shadow, "
-        "float* out_t, int* out_l, int* tally, void* stream"),
+    "mega_select.cu": {
+        "per-node tables": (
+            "glome_mega_select",
+            "const float* rays, int n, const float* pf, const int* pi, "
+            "const float* nf, const int* ni, const float* bb, "
+            "const int* meta, int n_phases, int shadow, float* out_t, "
+            "int* out_w, int* out_a, int* tally, void* stream"),
+        "records, fixed stack": (
+            "glome_mega_select",
+            "const float* rays, int n, const float* pf, const int* pi, "
+            "const float* nf, const int* ni, const float* nodes, "
+            "const float* bb, const float* pbox, const int* meta, "
+            "int n_meta, int n_phases, int shadow, float* out_t, "
+            "int* out_w, int* out_a, int* tally, void* stream")},
+    "dense_select.cu": {
+        "block aabbs": (
+            "glome_dense_select",
+            "const float* rays, int n, const float* seeds, const float* tab, "
+            "const float* vis, const float* bbox, int P, int FX, int nfld, "
+            "int ptype, int xf, const float* cf, const int* cdesc, "
+            "int shadow, float* out_t, int* out_l, int* tally, "
+            "void* stream")},
+    "block_select.cu": {
+        "per-node tables": (
+            "glome_block_select",
+            "const float* rays, int n, const float* seeds, const float* nf, "
+            "const int* ni, const float* tab, int n_nodes, int bp, int F, "
+            "int ptype, int xf, int nfld, const float* cf, "
+            "const int* cdesc, int shadow, float* out_t, int* out_s, "
+            "int* tally, void* stream")},
+    "mesh_block_select.cu": {
+        "skip links": (
+            "glome_mesh_block_select",
+            "const float* rays, int n, const float* seeds, const float* nf, "
+            "const int* ni, int n_nodes, const float* tri, int bp, "
+            "int shadow, float* out_t, int* out_s, int* tally, "
+            "void* stream")},
 }
+MESH_RES = (1920, 1080)
 
 
 def declared_params(path: str, fn: str):
     """The parameter list of `extern "C" int fn(...)` in the source at
     path, whitespace collapsed, or None."""
+    if not os.path.exists(path):
+        return None
     with open(path) as f:
         m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", f.read())
     return None if m is None else " ".join(m.group(1).split())
 
 
-def old_entry(lib_path: str, source: str):
+def old_designs(old_csrc: str):
+    """{source: design} of the OLD_ENTRIES the tree at old_csrc declares."""
+    found = {}
+    for source, designs in OLD_ENTRIES.items():
+        for design, (fn, params) in designs.items():
+            if declared_params(os.path.join(old_csrc, source), fn) == params:
+                found[source] = design
+    return found
+
+
+def old_entry(lib_path: str, source: str, design: str):
     """The earlier commit's C entry of `source`, loaded from lib_path with
     the argument types of OLD_ENTRIES (main checks first that the source
     declares it so: another list would be undefined on the card)."""
-    fn, params = OLD_ENTRIES[source]
+    fn, params = OLD_ENTRIES[source][design]
     entry = getattr(ctypes.CDLL(lib_path), fn)
     entry.argtypes = [ctypes.c_void_p if "*" in p else ctypes.c_int
                       for p in params.split(", ")]
@@ -122,6 +179,79 @@ def l0_shadow(compiled, arrays, rays):
     lpos, _lcol, lrad = _light_arrays(compiled, arrays, compiled.lights)
     _pre, _segs, sh = shadow_rays(hit, rays[7], compiled.lights, lpos, lrad)
     return sh.contiguous()
+
+
+def mesh_batches(compiled, arrays, cam, device, res=MESH_RES):
+    """The res L0 rays of a mesh scene, the seed K1 (the ground plane)
+    leaves for the mesh group, and the shadow rays of the L0 hits after
+    the whole chain: (rays, seed, shadow rays)."""
+    q = l0_batch(cam, *res, device)
+    plan = MK.get_plan(compiled)
+    t1, _w, _a = MK.mega_select(MK.pack_tables(plan, compiled, arrays), q,
+                                False)
+    return q, t1.contiguous(), l0_shadow(compiled, arrays, q)
+
+
+def block_inputs(compiled, arrays, grp, device):
+    """(plan, table, constraint rows) of K2's group grp = (si, gi)."""
+    sc = compiled.scenes[grp[0]]
+    g = sc.groups[grp[1]]
+    plan = BK.get_block_plan(g, sc)
+    ga = {k: v.detach() for k, v in
+          group_device_params(g, arrays["scenes"][grp[0]][grp[1]]).items()
+          if k != "m_fwd"}
+    return (plan, BK.pack_blocks(plan, ga),
+            BK.pack_cons(plan, sc, arrays["scenes"][grp[0]], device))
+
+
+def mesh_inputs(compiled, arrays, grp):
+    """(plan, table) of K3's group grp = (si, gi)."""
+    g = compiled.scenes[grp[0]].groups[grp[1]]
+    plan = MSH.get_block_plan(g)
+    ga = group_device_params(g, arrays["scenes"][grp[0]][grp[1]])
+    return plan, MSH.pack_tri_blocks(
+        plan, {k: ga[k].detach() for k in ("p1", "p2", "p3")})
+
+
+@dataclasses.dataclass
+class SkipLinkPlan:
+    """K3's plan before the child-pair records: a skip-link tree
+    (accel.build_bvh, leaves of at most SKIP_LINK_LEAF blocks) over blocks
+    of SKIP_LINK_BP triangles, the table in that tree's leaf order, 9
+    floats a row."""
+    nf: torch.Tensor
+    ni: torch.Tensor
+    n_nodes: int
+    row_perm: torch.Tensor
+    sel_to_local: torch.Tensor
+
+
+# the skip-link plan's blocks: 8 rows, at most 2 blocks per leaf
+SKIP_LINK_BP, SKIP_LINK_LEAF = 8, 2
+
+
+def skip_link_plan(g, device) -> SkipLinkPlan:
+    bp = SKIP_LINK_BP
+    n_blocks = (g.size + bp - 1) // bp
+    bmin, bmax = A.group_bounds(g)
+    pad = n_blocks * bp - g.size
+    if pad:
+        bmin = np.concatenate([bmin, np.repeat(bmin[-1:], pad, 0)])
+        bmax = np.concatenate([bmax, np.repeat(bmax[-1:], pad, 0)])
+    bvh = A.build_bvh(bmin.reshape(n_blocks, bp, 3).min(axis=1),
+                      bmax.reshape(n_blocks, bp, 3).max(axis=1),
+                      leaf_max=SKIP_LINK_LEAF)
+    order = np.asarray(bvh.order, np.int64)
+    row_perm = np.repeat(order * bp, bp) + np.tile(np.arange(bp), n_blocks)
+    nf = np.concatenate([bvh.bmin, bvh.bmax], axis=1).astype(np.float32)
+    ni = np.stack([bvh.skip, bvh.leaf_start, bvh.leaf_count],
+                  axis=1).astype(np.int32)
+    return SkipLinkPlan(
+        torch.as_tensor(nf.reshape(-1), device=device),
+        torch.as_tensor(ni.reshape(-1), device=device), bvh.n_nodes,
+        torch.as_tensor(row_perm, device=device),
+        torch.as_tensor(np.where(row_perm < g.size, row_perm, -1)
+                        .astype(np.int32), device=device))
 
 
 # --- K1's cost per phase -----------------------------------------------------
@@ -188,11 +318,15 @@ def clocks():
     return _smi("clocks.sm,clocks.max.sm,power.draw,temperature.gpu")
 
 
-def _ptxas(path):
+def ptxas_lines(path):
     return [line.strip() for line in
             kernels.BUILD_INFO[path]["log"].splitlines()
             if "entry function" in line or "registers" in line
             or "spill" in line or "smem" in line]
+
+
+def _fmt(xs):
+    return " / ".join(f"{x:.4f}" for x in xs)
 
 
 def main(argv=None) -> int:
@@ -209,194 +343,391 @@ def main(argv=None) -> int:
     if not os.path.isdir(old_csrc):
         print(f"kernel_ab: {old_csrc} not found", file=sys.stderr)
         return 2
+    designs = old_designs(old_csrc)
+    if not designs:
+        print(f"kernel_ab: {old_csrc} declares none of the earlier C "
+              "entries of OLD_ENTRIES", file=sys.stderr)
+        return 2
     import glome_tpu_torch as T
-    from glome_tpu_torch.scenes import test_scene
+    from glome_tpu_torch.scenes import mesh_scene, test_scene
     dev = torch.device("cuda", 0)
-    out = {"device": _smi("name,power.limit"), "clocks_start": clocks()}
+    out = {"device": _smi("name,power.limit"), "clocks_start": clocks(),
+           "old_designs": designs}
     print(f"[{out['device']}] clocks at the start: {out['clocks_start']}")
+    print(f"  old kernels: {designs}")
 
-    # -- builds
-    for source in OLD_ENTRIES:
-        fn, params = OLD_ENTRIES[source]
-        if declared_params(os.path.join(old_csrc, source), fn) != params:
-            print(f"kernel_ab: {old_csrc}/{source} does not declare "
-                  f"{fn}({params}); unpack the commit before the redesign "
-                  "as --old", file=sys.stderr)
-            return 2
-    paths = {"new K1": kernels.build(kernels.MEGA_SOURCES, "glome_mega"),
-             "old K1": kernels.build(kernels.MEGA_SOURCES, "glome_mega_old",
-                                     csrc=old_csrc),
-             "new K4": kernels.build(kernels.DENSE_SOURCES, "glome_dense"),
-             "old K4": kernels.build(kernels.DENSE_SOURCES, "glome_dense_old",
-                                     csrc=old_csrc)}
-    out["ptxas"] = {}
+    # -- builds: each compared kernel, new and old
+    paths, out["ptxas"] = {}, {}
+    for source in designs:
+        lib, srcs = next((name, srcs) for name, srcs in
+                         kernels.LIBRARIES.items() if srcs[0] == source)
+        paths[f"new {source}"] = kernels.build(srcs, lib)
+        paths[f"old {source}"] = kernels.build(
+            [s for s in srcs if os.path.exists(os.path.join(old_csrc, s))],
+            lib + "_old", csrc=old_csrc)
     for name, path in paths.items():
-        out["ptxas"][name] = _ptxas(path)
+        out["ptxas"][name] = ptxas_lines(path)
         print(f"  {name}: nvcc {kernels.BUILD_INFO[path]['seconds']:.2f} s")
         for line in out["ptxas"][name]:
             print(f"    ptxas: {line}")
-    new_k1 = MK.mega_select
-    old_k1 = old_entry(paths["old K1"], "mega_select.cu")
-    new_k4 = kernels.dense_select_lib()
-    old_k4 = old_entry(paths["old K4"], "dense_select.cu")
+    olds = {s: old_entry(paths[f"old {s}"], s, d) for s, d in designs.items()}
+    any_lib = kernels.mega_select_lib()   # for check_launch's error names
 
     def stream():
         return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
-    def k1_outputs(n):
-        return (torch.empty(n, dtype=torch.float32, device=dev),
-                torch.empty(n, dtype=torch.int32, device=dev),
-                torch.empty(n, dtype=torch.int32, device=dev))
-
-    def run_old_k1(tabs, rays, shadow, tally=None):
-        n = rays.shape[1]
-        t, w, a = k1_outputs(n)
-        err = old_k1(
-            rays.data_ptr(), n, tabs.pf.data_ptr(), tabs.pi.data_ptr(),
-            tabs.nf.data_ptr(), tabs.ni.data_ptr(), tabs.bb.data_ptr(),
-            tabs.phases.data_ptr(), len(tabs.plan.phases), int(shadow),
-            t.data_ptr(), w.data_ptr(), a.data_ptr(),
-            kernels.tally_ptr(tally), stream())
-        kernels.check_launch(new_k4, err, "old mega_select")
-        return t, w, a
-
-    # -- TestScene
-    solid, lights, cam = test_scene()
-    compiled = T.compile_scene(solid, lights)
-    plan = MK.get_plan(compiled)
-    arrays = T.to_torch(compiled.arrays(), dev)
-    cfg = T.RenderConfig.tuned()
-    tables = MK.pack_tables(plan, compiled, arrays)
-    q0 = l0_batch(cam, cfg.xres, cfg.yres, dev)
-    batches = {"L0 intersect": (q0, False),
-               "L0 shadow": (l0_shadow(compiled, arrays, q0), True)}
+    def empty(n, dtype):
+        return torch.empty(n, dtype=dtype, device=dev)
 
     def ms(fn):
         return device_time(fn) * 1e3
 
-    # -- K1: equality, turns, attribution, tallies
-    out["k1"] = {}
-    for label, (rays, shadow) in batches.items():
-        n = rays.shape[1]
-        ref = [x.cpu() for x in run_old_k1(tables, rays, shadow)]
-        got = [x.cpu() for x in new_k1(tables, rays, shadow)]
-        same = (torch.equal(got[1] >= 0, ref[1] >= 0) if shadow else
-                all(torch.equal(a, b) for a, b in zip(got, ref)))
-        row = {"rays": n, "new_equals_old": bool(same)}
+    def turns(fns, order=("old", "new", "new", "old")):
         before = clocks()
-        fns = {"old": lambda: run_old_k1(tables, rays, shadow),
-               "new": lambda: new_k1(tables, rays, shadow)}
-        row["turns_old_new"] = [ms(fns[v])
-                                for v in ("old", "new", "new", "old")]
-        row["clocks"] = [before, clocks()]
-        print(f"  [{out['device']}] K1 TestScene {label} ({n} rays): new == "
-              f"old {row['new_equals_old']}; ms old / new / new / old "
-              f"{' / '.join(f'{x:.4f}' for x in row['turns_old_new'])} "
-              f"(clocks before {before}; after {row['clocks'][1]})")
-        for vname, fn in (("old", lambda tb: run_old_k1(tb, rays, shadow)),
-                          ("new", lambda tb: new_k1(tb, rays, shadow))):
-            rows, full = attribution(lambda tb: ms(lambda: fn(tb)), tables)
-            print_attribution(f"K1 {vname} {label} per phase", rows, full)
-            row[f"attribution_{vname}"] = rows
-        t_old = torch.zeros((2, n), dtype=torch.int32, device=dev)
-        run_old_k1(tables, rays, shadow, tally=t_old)
-        t_new = torch.zeros((MK.TALLY_ROWS, n), dtype=torch.int32,
-                            device=dev)
-        new_k1(tables, rays, shadow, tally=t_new)
-        row["tally_old"] = (t_old.sum(dim=1).double() / n).tolist()
-        row["tally_new"] = (t_new.sum(dim=1).double() / n).tolist()
-        print(f"  K1 {label} tests per ray: old box / prim "
-              f"{row['tally_old']}; new box / prim / point / member "
-              f"{row['tally_new']}")
-        out["k1"][label] = row
+        times = [ms(fns[v]) for v in order]
+        return times, [before, clocks()]
+
+    need_ts = any(s in designs for s in ("mega_select.cu", "dense_select.cu"))
+    if need_ts:
+        solid, lights, cam = test_scene()
+        compiled = T.compile_scene(solid, lights)
+        plan = MK.get_plan(compiled)
+        arrays = T.to_torch(compiled.arrays(), dev)
+        cfg = T.RenderConfig.tuned()
+        tables = MK.pack_tables(plan, compiled, arrays)
+        q0 = l0_batch(cam, cfg.xres, cfg.yres, dev)
+
+    # -- K1: equality, turns, attribution, tallies
+    if "mega_select.cu" in designs:
+        old_k1, design = olds["mega_select.cu"], designs["mega_select.cu"]
+        tally_rows = 2 if design == "per-node tables" else MK.TALLY_ROWS
+
+        def run_old_k1(tabs, rays, shadow, tally=None):
+            n = rays.shape[1]
+            t, w, a = (empty(n, torch.float32), empty(n, torch.int32),
+                       empty(n, torch.int32))
+            if design == "per-node tables":
+                tabs_args = (tabs.nf.data_ptr(), tabs.ni.data_ptr(),
+                             tabs.bb.data_ptr(), tabs.phases.data_ptr(),
+                             len(tabs.plan.phases))
+            else:
+                tabs_args = (tabs.nf.data_ptr(), tabs.ni.data_ptr(),
+                             tabs.nodes.data_ptr(), tabs.bb.data_ptr(),
+                             tabs.pbox.data_ptr(), tabs.phases.data_ptr(),
+                             tabs.phases.numel(), len(tabs.plan.phases))
+            err = old_k1(rays.data_ptr(), n, tabs.pf.data_ptr(),
+                         tabs.pi.data_ptr(), *tabs_args, int(shadow),
+                         t.data_ptr(), w.data_ptr(), a.data_ptr(),
+                         kernels.tally_ptr(tally), stream())
+            kernels.check_launch(any_lib, err, "old mega_select")
+            return t, w, a
+
+        new_k1 = MK.mega_select
+        print(f"  K1: new walk stack {MK.walk_stack(plan)} entries per "
+              f"thread (deepest bvh2 tree: depth "
+              f"{max(ph.depth for ph in plan.phases if ph.kind == 'bvh2')})")
+        out["k1"] = {}
+        for label, (rays, shadow) in {
+                "L0 intersect": (q0, False),
+                "L0 shadow": (l0_shadow(compiled, arrays, q0), True)}.items():
+            n = rays.shape[1]
+            ref = [x.cpu() for x in run_old_k1(tables, rays, shadow)]
+            got = [x.cpu() for x in new_k1(tables, rays, shadow)]
+            same = (torch.equal(got[1] >= 0, ref[1] >= 0) if shadow else
+                    all(torch.equal(a, b) for a, b in zip(got, ref)))
+            row = {"rays": n, "new_equals_old": bool(same)}
+            row["turns_old_new"], row["clocks"] = turns(
+                {"old": lambda: run_old_k1(tables, rays, shadow),
+                 "new": lambda: new_k1(tables, rays, shadow)})
+            print(f"  [{out['device']}] K1 TestScene {label} ({n} rays): new "
+                  f"== old {row['new_equals_old']}; ms old / new / new / old "
+                  f"{_fmt(row['turns_old_new'])} (clocks before "
+                  f"{row['clocks'][0]}; after {row['clocks'][1]})")
+            for vname, fn in (("old", lambda tb: run_old_k1(tb, rays, shadow)),
+                              ("new", lambda tb: new_k1(tb, rays, shadow))):
+                rows, full = attribution(lambda tb: ms(lambda: fn(tb)), tables)
+                print_attribution(f"K1 {vname} {label} per phase", rows, full)
+                row[f"attribution_{vname}"] = rows
+            t_old = torch.zeros((tally_rows, n), dtype=torch.int32, device=dev)
+            run_old_k1(tables, rays, shadow, tally=t_old)
+            t_new = torch.zeros((MK.TALLY_ROWS, n), dtype=torch.int32,
+                                device=dev)
+            new_k1(tables, rays, shadow, tally=t_new)
+            row["tally_old"] = (t_old.sum(dim=1).double() / n).tolist()
+            row["tally_new"] = (t_new.sum(dim=1).double() / n).tolist()
+            print(f"  K1 {label} tests per ray (box / prim [/ point / "
+                  f"member]): old {row['tally_old']}; new {row['tally_new']}")
+            out["k1"][label] = row
 
     # -- K4 on every dense group of the group route, L0 batch
-    out["k4"] = {}
-    seed = q0[6].contiguous()
-    for si, sc in enumerate(compiled.scenes):
-        for gi, g in enumerate(sc.groups):
-            if g.vclass in ("deferred", "convex") or not g.size \
-                    or g.accel_eligible:
-                continue
-            (ptype, pm, minv, vis, cons), cull = TI.dense_args(
-                sc, arrays["scenes"][si], gi, False, dev)
-            ga = arrays["scenes"][si][gi]
-            block = GK.block_aabbs(ptype, {k: v.detach() for k, v in
-                                           ga.items()
-                                           if k not in ("m_inv", "m_fwd")},
-                                   None if ga.get("m_fwd") is None
-                                   else ga["m_fwd"].detach(), g.size)
-            tab = GK._dense_table(pm, minv)
-            n = q0.shape[1]
+    if "dense_select.cu" in designs:
+        old_k4, new_k4 = olds["dense_select.cu"], kernels.dense_select_lib()
+        out["k4"] = {}
+        seed = q0[6].contiguous()
+        for si, sc in enumerate(compiled.scenes):
+            for gi, g in enumerate(sc.groups):
+                if g.vclass in ("deferred", "convex") or not g.size \
+                        or g.accel_eligible:
+                    continue
+                out["k4"].update(_k4_group(
+                    out["device"], sc, si, gi, g, arrays, q0, seed, dev,
+                    old_k4, new_k4, stream, ms, turns))
 
-            def run_old(tally=None):
-                t = torch.empty(n, dtype=torch.float32, device=dev)
-                loc = torch.empty(n, dtype=torch.int32, device=dev)
-                err = old_k4(
-                    q0.data_ptr(), n, seed.data_ptr(), tab.data_ptr(),
-                    vis.data_ptr(),
-                    None if block is None else block.data_ptr(), g.size,
-                    tab.shape[0], pm.shape[0], MK.PTYPE_CODE[ptype],
-                    int(minv is not None), cons.cf.data_ptr(),
-                    cons.desc.data_ptr(), 0, t.data_ptr(), loc.data_ptr(),
-                    kernels.tally_ptr(tally), stream())
-                kernels.check_launch(new_k4, err, "old dense_select")
-                return t, loc
-
-            def run_new(tally=None):
-                return GK.dense_select(ptype, pm, minv, vis, cons, q0, seed,
-                                       block_bbox=cull, tally=tally)
-
-            def run_raw():
-                # the new kernel through its C entry on old's inputs: what
-                # the wrapper adds (its table concatenation) left out
-                t = torch.empty(n, dtype=torch.float32, device=dev)
-                loc = torch.empty(n, dtype=torch.int32, device=dev)
-                err = new_k4.glome_dense_select(
-                    q0.data_ptr(), n, seed.data_ptr(), tab.data_ptr(),
-                    vis.data_ptr(), None if cull is None else cull.data_ptr(),
-                    g.size, tab.shape[0], pm.shape[0], MK.PTYPE_CODE[ptype],
-                    int(minv is not None), cons.cf.data_ptr(),
-                    cons.desc.data_ptr(), 0, t.data_ptr(), loc.data_ptr(),
-                    None, stream())
-                kernels.check_launch(new_k4, err, "dense_select")
-                return t, loc
-            ref, got, raw = run_old(), run_new(), run_raw()
-            same = all(torch.equal(a, b) and torch.equal(a, c)
-                       for a, b, c in zip(ref, got, raw))
-            tallies = []
-            for fn in (run_old, run_new):
+    # -- K2 on mesh100k, K3 on mesh250k: 1080p L0 and shadow batches
+    for source, n_tris, key in (("block_select.cu", 100_000, "k2"),
+                                ("mesh_block_select.cu", 250_000, "k3")):
+        if source not in designs:
+            continue
+        s, lt, c = mesh_scene(n_tris, cast_shadows=True)
+        cc = T.compile_scene(s, lt)
+        garrs = T.to_torch(cc.arrays(), dev)
+        mp = MK.get_plan(cc)
+        grp = (mp.blocks + mp.external)[0]
+        g = cc.scenes[grp[0]].groups[grp[1]]
+        q, t1, sh = mesh_batches(cc, garrs, c, dev)
+        if key == "k2":
+            runs = _k2_runs(cc, garrs, grp, g, dev, olds[source], stream,
+                            any_lib)
+        else:
+            runs = _k3_runs(cc, garrs, grp, g, dev, olds[source], stream,
+                            any_lib)
+        out[key] = {}
+        for label, rays, seed, shadow in (("L0 intersect", q, t1, False),
+                                          ("L0 shadow", sh, sh[6], True)):
+            seed = seed.contiguous()
+            n = rays.shape[1]
+            old, new = runs["old"], runs["new"]
+            (to, lo), (tn, ln) = old(rays, seed, shadow), new(rays, seed,
+                                                             shadow)
+            if shadow:
+                same, ties = bool(torch.equal(lo >= 0, ln >= 0)), 0
+            else:
+                diff = lo != ln
+                same = bool(torch.equal(to, tn)
+                            and torch.equal(lo >= 0, ln >= 0))
+                ties = int(diff.sum())
+            row = {"rays": n, "new_equals_old": same,
+                   "winner_ties": ties}
+            row["turns_old_new"], row["clocks"] = turns(
+                {"old": lambda: old(rays, seed, shadow),
+                 "new": lambda: new(rays, seed, shadow)})
+            for vname in runs:
                 tl = torch.zeros((2, n), dtype=torch.int32, device=dev)
-                fn(tally=tl)
-                tallies.append((tl.sum(dim=1).double() / n).tolist())
-            before = clocks()
-            fns = {"old": run_old, "new": run_new, "raw": run_raw}
-            turns = [ms(fns[v]) for v in ("old", "new", "new", "old")]
-            raw_turns = [ms(fns[v]) for v in ("raw", "old", "old", "raw")]
-            label = (f"{si}.g{gi} ({g.size} {ptype}"
-                     f"{', transformed' if minv is not None else ''}"
-                     f"{', constrained' if g.constraints else ''})")
-            out["k4"][label] = {"equal": bool(same), "tally_old": tallies[0],
-                                "tally_new": tallies[1], "turns": turns,
-                                "turns_raw_old": raw_turns,
-                                "clocks": [before, clocks()]}
-            print(f"  [{out['device']}] K4 {label} L0 ({n} rays): new == old "
-                  f"{same}; box / prim tests per ray old {tallies[0]}, new "
-                  f"{tallies[1]}; ms old / new / new / old "
-                  f"{' / '.join(f'{x:.4f}' for x in turns)}; new through its "
-                  f"C entry (raw) / old / old / raw "
-                  f"{' / '.join(f'{x:.4f}' for x in raw_turns)} (clocks "
-                  f"before {before})")
+                runs[vname](rays, seed, shadow, tally=tl)
+                row[f"tally {vname}"] = (tl.sum(dim=1).double() / n).tolist()
+            print(f"  [{out['device']}] {key.upper()} mesh_scene({n_tris}) "
+                  f"1080p {label} ({n} rays): t and hit equal on every lane "
+                  f"{same}; group-local winners differ at {ties} exact t "
+                  f"ties; ms old / new / new / old "
+                  f"{_fmt(row['turns_old_new'])}; box / triangle tests per "
+                  f"ray old {row['tally old']}, new {row['tally new']} "
+                  f"(clocks before {row['clocks'][0]}; after "
+                  f"{row['clocks'][1]})")
+            if "old on new blocks" in runs:
+                same_blocks = runs["old on new blocks"]
+                t_s, l_s = same_blocks(rays, seed, shadow)
+                row["old_on_new_blocks_equal"] = bool(
+                    torch.equal(l_s >= 0, ln >= 0) if shadow else
+                    torch.equal(t_s, tn) and torch.equal(l_s >= 0, ln >= 0))
+                row["new_equals_old"] &= row["old_on_new_blocks_equal"]
+                row["turns_old_on_new_blocks"], _clk = turns(
+                    {"old": lambda: same_blocks(rays, seed, shadow),
+                     "new": lambda: new(rays, seed, shadow)})
+                print(f"    the old walk on the new blocks: equal "
+                      f"{row['old_on_new_blocks_equal']}; ms old / new / "
+                      f"new / old {_fmt(row['turns_old_on_new_blocks'])}; "
+                      f"tests per ray {row['tally old on new blocks']}")
+            out[key][label] = row
     out["clocks_end"] = clocks()
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
-    ok = (all(r["new_equals_old"] for r in out["k1"].values())
-          and all(r["equal"] for r in out["k4"].values()))
+    ok = (all(r["new_equals_old"] for k in ("k1", "k2", "k3")
+              for r in out.get(k, {}).values())
+          and all(r["equal"] for r in out.get("k4", {}).values()))
     print("kernel_ab: " + ("every kernel equals its predecessor" if ok
                            else "MISMATCH"))
     return 0 if ok else 1
+
+
+def _k4_group(device, sc, si, gi, g, arrays, q0, seed, dev, old_k4, new_k4,
+              stream, ms, turns):
+    """{label: row} of K4 old against new on one dense group with the L0
+    batch q0."""
+    (ptype, pm, minv, vis, cons), cull = TI.dense_args(
+        sc, arrays["scenes"][si], gi, False, dev)
+    ga = arrays["scenes"][si][gi]
+    block = GK.block_aabbs(ptype, {k: v.detach() for k, v in ga.items()
+                                   if k not in ("m_inv", "m_fwd")},
+                           None if ga.get("m_fwd") is None
+                           else ga["m_fwd"].detach(), g.size)
+    tab = GK._dense_table(pm, minv)
+    n = q0.shape[1]
+
+    def run_old(tally=None):
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        loc = torch.empty(n, dtype=torch.int32, device=dev)
+        err = old_k4(
+            q0.data_ptr(), n, seed.data_ptr(), tab.data_ptr(),
+            vis.data_ptr(), None if block is None else block.data_ptr(),
+            g.size, tab.shape[0], pm.shape[0], MK.PTYPE_CODE[ptype],
+            int(minv is not None), cons.cf.data_ptr(), cons.desc.data_ptr(),
+            0, t.data_ptr(), loc.data_ptr(), kernels.tally_ptr(tally),
+            stream())
+        kernels.check_launch(new_k4, err, "old dense_select")
+        return t, loc
+
+    def run_new(tally=None):
+        return GK.dense_select(ptype, pm, minv, vis, cons, q0, seed,
+                               block_bbox=cull, tally=tally)
+
+    def run_raw():
+        # the new kernel through its C entry on old's inputs: what the
+        # wrapper adds (its table concatenation) left out
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        loc = torch.empty(n, dtype=torch.int32, device=dev)
+        err = new_k4.glome_dense_select(
+            q0.data_ptr(), n, seed.data_ptr(), tab.data_ptr(),
+            vis.data_ptr(), None if cull is None else cull.data_ptr(),
+            g.size, tab.shape[0], pm.shape[0], MK.PTYPE_CODE[ptype],
+            int(minv is not None), cons.cf.data_ptr(), cons.desc.data_ptr(),
+            0, t.data_ptr(), loc.data_ptr(), None, stream())
+        kernels.check_launch(new_k4, err, "dense_select")
+        return t, loc
+    ref, got, raw = run_old(), run_new(), run_raw()
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(ref, got, raw))
+    tallies = []
+    for fn in (run_old, run_new):
+        tl = torch.zeros((2, n), dtype=torch.int32, device=dev)
+        fn(tally=tl)
+        tallies.append((tl.sum(dim=1).double() / n).tolist())
+    fns = {"old": run_old, "new": run_new, "raw": run_raw}
+    times, clk = turns(fns)
+    raw_times, _ = turns(fns, ("raw", "old", "old", "raw"))
+    label = (f"{si}.g{gi} ({g.size} {ptype}"
+             f"{', transformed' if minv is not None else ''}"
+             f"{', constrained' if g.constraints else ''})")
+    print(f"  [{device}] K4 {label} L0 ({n} rays): new == old {same}; box / "
+          f"prim tests per ray old {tallies[0]}, new {tallies[1]}; ms old / "
+          f"new / new / old {_fmt(times)}; new through its C entry (raw) / "
+          f"old / old / raw {_fmt(raw_times)} (clocks before {clk[0]})")
+    return {label: {"equal": bool(same), "tally_old": tallies[0],
+                    "tally_new": tallies[1], "turns": times,
+                    "turns_raw_old": raw_times, "clocks": clk}}
+
+
+# the per-node plan's blocks: 8 rows each
+PER_NODE_BP = 8
+
+
+def per_node_tables(g, plan, ga, bp, device):
+    """(nf, ni, n_nodes, table) of K2's per-node layout over blocks of bp
+    rows, as K2's plan built them before the child-pair records: the
+    binary tree over the block boxes (accel.build_bvh2, one block a leaf),
+    nf = (bmin, bmax) and ni = [left, right, leaf block] per node, and the
+    group's rows cut into (n_blocks, bp, F) blocks, the last padded with
+    copies of the last row, nfld (+ 12 inverse-matrix) floats each.
+    `plan` is this checkout's BlockPlan of g (its ptype), `ga` the
+    group's parameters."""
+    n_blocks = -(-g.size // bp)
+    bmin, bmax = A.group_bounds(g)
+    pad = n_blocks * bp - g.size
+    if pad:
+        bmin = np.concatenate([bmin, np.repeat(bmin[-1:], pad, 0)])
+        bmax = np.concatenate([bmax, np.repeat(bmax[-1:], pad, 0)])
+    bvh = A.build_bvh2(bmin.reshape(n_blocks, bp, 3).min(axis=1),
+                       bmax.reshape(n_blocks, bp, 3).max(axis=1), leaf_max=1)
+    leaf_blk = np.where(bvh.leaf_count > 0, np.asarray(bvh.order)[
+        np.clip(bvh.leaf_start, 0, n_blocks - 1)], -1)
+    nf = np.concatenate([bvh.bmin, bvh.bmax], axis=1).astype(np.float32)
+    ni = np.stack([bvh.left, bvh.right, leaf_blk], axis=1).astype(np.int32)
+    rows = BK._rows(plan.ptype, ga, plan.transformed)
+    if pad:
+        rows = torch.cat([rows, rows[-1:].expand(pad, -1)])
+    return (torch.as_tensor(nf.reshape(-1), device=device),
+            torch.as_tensor(ni.reshape(-1), device=device), bvh.n_nodes,
+            rows.reshape(n_blocks, bp, rows.shape[1]).contiguous())
+
+
+def _k2_runs(compiled, arrays, grp, g, dev, old_k2, stream, err_lib):
+    """{"old", "old on new blocks", "new"}: K2 on the group as fn(rays,
+    seed, shadow, tally=None) -> (t, group-local winner * 2 + slot).  The
+    old kernel walks per_node_tables: over PER_NODE_BP-row blocks (its
+    own plan), and over this checkout's BP-row blocks (the new kernel's
+    tree, so that the two walks alone are compared)."""
+    plan, tab, cf = block_inputs(compiled, arrays, grp, dev)
+    ga = {k: v.detach() for k, v in
+          group_device_params(g, arrays["scenes"][grp[0]][grp[1]]).items()
+          if k != "m_fwd"}
+    cdesc = plan.device_tables(dev)[1]
+
+    def local(sel2):
+        row = torch.clamp(sel2 // 2, 0, g.size - 1)
+        return torch.where(sel2 >= 0, row * 2 + sel2 % 2, -1)
+
+    def old_on(bp):
+        nf, ni, n_nodes, otab = per_node_tables(g, plan, ga, bp, dev)
+
+        def old(rays, seed, shadow, tally=None):
+            n = rays.shape[1]
+            t = torch.empty(n, dtype=torch.float32, device=dev)
+            s = torch.empty(n, dtype=torch.int32, device=dev)
+            err = old_k2(rays.data_ptr(), n, seed.data_ptr(), nf.data_ptr(),
+                         ni.data_ptr(), otab.data_ptr(), n_nodes, bp,
+                         otab.shape[2],
+                         MK.PTYPE_CODE[plan.ptype], int(plan.transformed),
+                         plan.nfld, cf.data_ptr(), cdesc.data_ptr(),
+                         int(shadow), t.data_ptr(), s.data_ptr(),
+                         kernels.tally_ptr(tally), stream())
+            kernels.check_launch(err_lib, err, "old block_select")
+            return t, local(s)
+        return old
+
+    def new(rays, seed, shadow, tally=None):
+        t, s = BK.block_select(plan, tab, cf, rays, seed, shadow, tally=tally)
+        return t, local(s)
+    print(f"  K2 block plan: {plan.n_blocks} blocks of {BK.BP}, "
+          f"{plan.n_nodes} nodes, depth {plan.depth}; the old kernel's own "
+          f"blocks: {PER_NODE_BP} rows")
+    return {"old": old_on(PER_NODE_BP), "old on new blocks": old_on(BK.BP),
+            "new": new}
+
+
+def _k3_runs(compiled, arrays, grp, g, dev, old_k3, stream, err_lib):
+    """{"old", "new"}: K3 on the group as fn(rays, seed, shadow, tally=None)
+    -> (t, group-local triangle).  The old kernel walks skip_link_plan's
+    tree over 9-float rows in that tree's leaf order."""
+    plan, tri = mesh_inputs(compiled, arrays, grp)
+    sp = skip_link_plan(g, dev)
+    ga = group_device_params(g, arrays["scenes"][grp[0]][grp[1]])
+    rows = torch.cat([ga[k].detach() for k in ("p1", "p2", "p3")],
+                     dim=-1).to(torch.float32)
+    rows = torch.cat([rows, rows.new_zeros((len(sp.row_perm) - g.size, 9))])
+    old_tri = rows[sp.row_perm].contiguous()
+    s2l = plan.device_tables(dev)[2]
+
+    def old(rays, seed, shadow, tally=None):
+        n = rays.shape[1]
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        s = torch.empty(n, dtype=torch.int32, device=dev)
+        err = old_k3(rays.data_ptr(), n, seed.data_ptr(), sp.nf.data_ptr(),
+                     sp.ni.data_ptr(), sp.n_nodes, old_tri.data_ptr(),
+                     SKIP_LINK_BP, int(shadow), t.data_ptr(), s.data_ptr(),
+                     kernels.tally_ptr(tally), stream())
+        kernels.check_launch(err_lib, err, "old mesh_block_select")
+        return t, torch.where(s >= 0, sp.sel_to_local[s.clamp(min=0).long()],
+                              -1)
+
+    def new(rays, seed, shadow, tally=None):
+        t, s = MSH.mesh_block_select(plan, tri, rays, seed, shadow,
+                                     tally=tally)
+        return t, torch.where(s >= 0, s2l[s.clamp(min=0).long()], -1)
+    print(f"  K3 mesh plan: {plan.n_blocks} blocks of {MSH.BP}, at most "
+          f"{MSH.BLOCK_LEAF_MAX} per leaf, {plan.n_nodes} nodes, depth "
+          f"{plan.depth}; the old skip-link tree {sp.n_nodes} nodes")
+    return {"old": old, "new": new}
 
 
 if __name__ == "__main__":

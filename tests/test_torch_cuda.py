@@ -15,10 +15,12 @@ import torch
 
 import glome_tpu_torch as T
 from glome_tpu_torch import megakernel as MK
-from glome_tpu_torch.scenes.phasescene import (csg_rays, csg_scene,
+from glome_tpu_torch.scenes.phasescene import (chain_rays, chain_scene,
+                                               csg_rays, csg_scene,
                                                phase_kinds_lights,
                                                phase_kinds_rays,
-                                               phase_kinds_scene)
+                                               phase_kinds_scene,
+                                               tie_grid_rays, tie_grid_scene)
 
 SCENES = {"phase_kinds": (phase_kinds_scene, phase_kinds_rays),
           "csg": (csg_scene, csg_rays)}
@@ -90,6 +92,31 @@ def test_clause_work_is_tallied(dev):
         MK.mega_select(tables, rays, False, tally=tally[:2].contiguous())
 
 
+@pytest.mark.parametrize("shadow", [False, True])
+def test_kernel_walks_a_deep_tree(dev, shadow):
+    """phasescene.chain_scene's bvh2 tree is 47 deep, beyond K1's former
+    fixed 32-entry stack: the plan-sized stack walks it, and K1 equals
+    its plain version there."""
+    compiled = T.compile_scene(chain_scene(), phase_kinds_lights())
+    plan = MK.get_plan(compiled)
+    assert max(ph.depth for ph in plan.phases if ph.kind == "bvh2") == 47
+    tables = MK.pack_tables(plan, compiled,
+                            T.to_torch(compiled.arrays(), dev))
+    n = 8192
+    o, d = chain_rays(n, seed=1)
+    rays = torch.as_tensor(np.stack(
+        [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+         np.full(n, 1.0 if shadow else T.INFINITY, np.float32),
+         np.zeros(n, np.float32)]), device=dev).contiguous()
+    tk, wk, ak = MK.mega_select(tables, rays, shadow)
+    tp, wp, ap = MK.mega_select_plain(tables, rays, shadow)
+    torch.cuda.synchronize()
+    assert torch.equal(wk >= 0, wp >= 0)
+    assert 0 < int((wk >= 0).sum()) < n
+    if not shadow:
+        assert torch.equal(tk, tp) and torch.equal(wk, wp)
+
+
 def test_launch_count(dev, tables):
     rays = _rays(dev, 1024, T.INFINITY, 0)
     before = MK.mega_select.launches
@@ -132,9 +159,10 @@ def _group_case(dev, case):
     return sc, gi, T.to_torch(compiled.arrays(), dev)["scenes"][0]
 
 
-def _block_rays(dev, n, seed_t, seed, span):
-    from glome_tpu_torch.scenes.phasescene import block_rays
-    o, d = block_rays(n, seed, span)
+def _rays_of(dev, o, d, seed_t):
+    """(rays, seed) on dev: the (8, N) table of rays (o, d) with seed t
+    seed_t, every 17th lane dead."""
+    n = o.shape[0]
     seeds = np.full(n, seed_t, np.float32)
     seeds[::17] = 0.0                         # dead lanes
     rays = torch.as_tensor(np.stack(
@@ -143,19 +171,24 @@ def _block_rays(dev, n, seed_t, seed, span):
     return rays, rays[6].contiguous()
 
 
+def _block_rays(dev, n, seed_t, seed, span):
+    from glome_tpu_torch.scenes.phasescene import block_rays
+    o, d = block_rays(n, seed, span)
+    return _rays_of(dev, o, d, seed_t)
+
+
 def _assert_kernel_equals_plain(k, p, shadow):
     """Built without multiply-add contraction, the kernels round each
     candidate as the plain versions do: blocked/hit agree on every
-    lane, and an intersect winner differs only where both t are equal
-    (a tie the walk order breaks another way)."""
+    lane, and in intersect mode t and the winner too (both take the
+    lowest row of an exact tie)."""
     (tk, sk), (tp, sp) = k, p
     torch.cuda.synchronize()
     assert torch.equal(sk >= 0, sp >= 0)
     assert 0 < int((sk >= 0).sum()) < sk.numel()
     if not shadow:
         assert torch.equal(tk, tp)
-        diff = sk != sp
-        assert torch.equal(tk[diff], tp[diff])
+        assert torch.equal(sk, sp)
 
 
 @pytest.mark.parametrize("case", ["mesh", "spheres", "difference",
@@ -194,6 +227,93 @@ def test_mesh_kernel_matches_plain(dev, shadow):
     p = MSH.mesh_block_select_plain(plan, tri, rays, seed, shadow)
     assert MSH.mesh_block_select.launches == before + 1
     _assert_kernel_equals_plain(k, p, shadow)
+
+
+def _tie_grid(dev):
+    """(scene, group, device arrays) of phasescene.tie_grid_scene."""
+    compiled = T.compile_scene(tie_grid_scene(), phase_kinds_lights())
+    sc = compiled.scenes[0]
+    return sc, sc.groups[0], T.to_torch(compiled.arrays(), dev)["scenes"][0]
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+def test_block_and_mesh_kernels_break_ties_by_row(dev, shadow):
+    """On the flat quad grid, whose vertical rays meet several rows at
+    bit-exactly the same t, K2 and K3 equal their plain versions on every
+    lane, winners included: the lowest tied row."""
+    from glome_tpu_torch import block_kernel as BK
+    from glome_tpu_torch import mesh_kernel as MSH
+    from glome_tpu_torch.compile import group_device_params
+    sc, g, garrs = _tie_grid(dev)
+    ga = group_device_params(g, garrs[0])
+    o, d = tie_grid_rays(8192, seed=2)
+    rays, seed = _rays_of(dev, o, d, 5.0 if shadow else T.INFINITY)
+    plan = BK.get_block_plan(g, sc)
+    tab = BK.pack_blocks(plan, ga)
+    cf = BK.pack_cons(plan, sc, garrs, dev)
+    _assert_kernel_equals_plain(
+        BK.block_select(plan, tab, cf, rays, seed, shadow),
+        BK.block_select_plain(plan, tab, cf, rays, seed, shadow), shadow)
+    mplan = MSH.get_block_plan(g)
+    tri = MSH.pack_tri_blocks(mplan, ga)
+    _assert_kernel_equals_plain(
+        MSH.mesh_block_select(mplan, tri, rays, seed, shadow),
+        MSH.mesh_block_select_plain(mplan, tri, rays, seed, shadow), shadow)
+
+
+@pytest.mark.parametrize("shadow", [False, True])
+def test_block_kernel_walks_a_deep_tree(dev, shadow):
+    """The 320-sphere chain's block tree is 80 deep, beyond K2's former
+    fixed 64-entry stack (its 79-entry stack takes 79 KB of shared
+    memory, above the 48 KB a kernel gets without opting in); K2 equals
+    its plain version there."""
+    from glome_tpu_torch import block_kernel as BK
+    from glome_tpu_torch.compile import group_device_params
+    ratio = 2.0 ** (-1 / 6)
+    compiled = T.compile_scene(chain_scene(320, ratio), phase_kinds_lights())
+    sc = compiled.scenes[0]
+    g = sc.groups[0]
+    garrs = T.to_torch(compiled.arrays(), dev)["scenes"][0]
+    plan = BK.get_block_plan(g, sc)
+    assert plan.depth > 64
+    tab = BK.pack_blocks(plan, group_device_params(g, garrs[0]))
+    cf = BK.pack_cons(plan, sc, garrs, dev)
+    o, d = chain_rays(8192, seed=3, n_spheres=320, ratio=ratio)
+    rays, seed = _rays_of(dev, o, d, 1.0 if shadow else T.INFINITY)
+    _assert_kernel_equals_plain(
+        BK.block_select(plan, tab, cf, rays, seed, shadow),
+        BK.block_select_plain(plan, tab, cf, rays, seed, shadow), shadow)
+
+
+def test_mesh_kernel_tests_as_few_as_the_block_kernel(dev):
+    """K3 walks K2's near-first walk over leaves of up to 2 blocks: on
+    mesh_scene(1500) its box + triangle tests per ray are at most 1.1x
+    K2's on the same rays."""
+    from glome_tpu_torch import block_kernel as BK
+    from glome_tpu_torch import mesh_kernel as MSH
+    from glome_tpu_torch.compile import group_device_params
+    from glome_tpu_torch.scenes import mesh_scene
+    solid, lights, _cam = mesh_scene(1500, cast_shadows=True)
+    compiled = T.compile_scene(solid, lights)
+    sc = compiled.scenes[0]
+    gi = max(range(len(sc.groups)), key=lambda i: sc.groups[i].size)
+    g = sc.groups[gi]
+    garrs = T.to_torch(compiled.arrays(), dev)["scenes"][0]
+    ga = group_device_params(g, garrs[gi])
+    rays, seed = _block_rays(dev, 8192, T.INFINITY, 6, 3.0)
+    n = rays.shape[1]
+    tallies = [torch.zeros((2, n), dtype=torch.int32, device=dev)
+               for _ in range(2)]
+    plan = BK.get_block_plan(g, sc)
+    BK.block_select(plan, BK.pack_blocks(plan, ga),
+                    BK.pack_cons(plan, sc, garrs, dev), rays, seed,
+                    tally=tallies[0])
+    mplan = MSH.get_block_plan(g)
+    MSH.mesh_block_select(mplan, MSH.pack_tri_blocks(mplan, ga), rays, seed,
+                          tally=tallies[1])
+    k2, k3 = (float(t.sum()) / n for t in tallies)
+    print(f"box + triangle tests per ray: K2 {k2:.2f}, K3 {k3:.2f}")
+    assert 0 < k3 <= 1.1 * k2
 
 
 def test_block_wrappers_reject_bad_inputs(dev):

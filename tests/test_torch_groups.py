@@ -8,6 +8,8 @@ glome_tpu's, on the CPU.
     dense_intersect / bvh_intersect in interpret mode;
   - K4's cull table (group_kernels.cull_aabbs) against the plain
     version's candidates: no box culls a candidate;
+  - K2's block trees of block_scene as the child-pair records that K1,
+    K2 and K3 share (accel.node_records);
   - TestScene 90x60 depth 3 through WavefrontTracer(route=GROUPS)
     against glome_tpu's CPU golden of the frame.
 
@@ -31,6 +33,7 @@ import glome_tpu as G
 import glome_tpu_torch as T
 from glome_tpu import pallas_kernels as PK
 from glome_tpu.scenes import test_scene as jax_test_scene
+from glome_tpu_torch import block_kernel as BK
 from glome_tpu_torch import group_kernels as GK
 from glome_tpu_torch import intersect as TI
 from glome_tpu_torch import megakernel as TMK
@@ -43,6 +46,8 @@ from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
                                                phase_kinds_lights,
                                                phase_kinds_rays,
                                                phase_kinds_scene)
+from test_torch_mega import walk_pair_records
+from test_torch_mesh import block_tree_rows
 
 INF = T.INFINITY
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
@@ -115,6 +120,29 @@ def test_megakernel_route_builds_no_group_tree():
     assert any(g.accel_eligible for g in ct.scenes[0].groups)
     assert not any("_accel" in g.__dict__ for sc in ct.scenes
                    for g in sc.groups)
+
+
+@pytest.mark.parametrize("kind", ["spheres", "difference", "transformed"])
+def test_block_scene_trees_as_child_pair_records(kind):
+    """K2's binary block trees over phasescene.block_scene's groups (700
+    spheres, their difference with a sphere, 300 rotated boxes), laid
+    out as the child-pair records K1, K2 and K3 share: every child box
+    and leaf range given back, each leaf the BP rows of its block of the
+    unpermuted table, every node reached once."""
+    ct = T.compile_scene(block_scene(kind), phase_kinds_lights())
+    sc = ct.scenes[0]
+    n_trees = 0
+    for g in sc.groups:
+        if g.size < 64 or g.ptype == "plane":
+            continue
+        plan = BK.get_block_plan(g, sc)
+        reached, depth = walk_pair_records(
+            plan.nodes.reshape(-1, TMK.NODE_W), *block_tree_rows(plan))
+        assert (reached, depth) == (plan.n_nodes, plan.depth)
+        assert plan.n_blocks > 1 and (plan.transformed
+                                      == (kind == "transformed"))
+        n_trees += 1
+    assert n_trees >= 1
 
 
 # --- K4 / K5 plain versions against the Pallas kernels ---------------------

@@ -104,7 +104,8 @@ def test_plan_tables_match(compiled_pair):
 
 def test_testscene_plan_shape(testscene_pair):
     """The main path's plan: 2 scenes, the four phase kinds, nothing
-    routed to K2/K3, and bvh2 trees within the kernel's stack bound."""
+    routed to K2/K3, and K1's walk stack sized from the deepest bvh2
+    tree: depth 15, so 14 entries per thread."""
     _cj, ct = testscene_pair
     plan = TMK.get_plan(ct)
     assert plan.n_scenes == 2
@@ -116,7 +117,8 @@ def test_testscene_plan_shape(testscene_pair):
     heads = tab[:len(plan.phases) * TMK.PH_W].reshape(-1, TMK.PH_W)
     assert [int(k) for k in heads[:, TMK.PH_KIND]] == [
         TMK.KIND_CODE[ph.kind] for ph in plan.phases]
-    assert max(ph.depth for ph in plan.phases) <= TMK.STACK_MAX
+    assert max(ph.depth for ph in plan.phases) == 15
+    assert TMK.walk_stack(plan) == 14
 
 
 def test_to_torch_round_trip():

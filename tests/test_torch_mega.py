@@ -26,7 +26,9 @@ from glome_tpu import megakernel as MK
 from glome_tpu_torch import megakernel as TMK
 from glome_tpu.materials import Warp as JWarp
 from glome_tpu_torch.materials import Warp as TWarp
-from glome_tpu_torch.scenes.phasescene import (phase_kinds_lights,
+from glome_tpu_torch import kernels as TK
+from glome_tpu_torch.scenes.phasescene import (chain_rays, chain_scene,
+                                               phase_kinds_lights,
                                                phase_kinds_rays,
                                                phase_kinds_scene)
 
@@ -242,13 +244,12 @@ def test_finalize_gradients_match_jax(scenes, intersect_case):
 
 # --- K1's child-pair node records ------------------------------------------
 
-def _walk_records(plan, ph, recs):
-    """Walk one bvh2 tree's child-pair records (megakernel.node_records)
-    from its root beside the plan's per-node tables, asserting every child
-    box and leaf range; returns (nodes reached, depth)."""
-    M = ph.n_nodes
-    box = plan.nf[ph.nf_base:ph.nf_base + 6 * M].reshape(M, 6)
-    ni = plan.ni[ph.ni_base:ph.ni_base + 4 * M].reshape(M, 4)
+def walk_pair_records(recs, box, left, right, first, count):
+    """Walk a tree's child-pair records (accel.node_records: (R, NODE_W)
+    float32) from its root beside the tree's per-node arrays -- box (M,
+    6) as (bmin, bmax), children left / right, and each leaf's rows
+    [first, first + count) -- asserting every child box and leaf range;
+    returns (nodes reached, depth)."""
     words = recs.view(np.int32)
     np.testing.assert_array_equal(recs[0, 0:6], box[0])
     reached, depth = 0, 0
@@ -258,16 +259,26 @@ def _walk_records(plan, ph, recs):
         reached += 1
         depth = max(depth, level)
         if ref < 0:                               # a leaf: its range
-            assert ni[node, 3] > 0
-            assert ((~ref) >> 5, (~ref) & 31) == (ni[node, 2], ni[node, 3])
+            assert count[node] > 0
+            assert ((~ref) >> 5, (~ref) & 31) == (first[node], count[node])
             continue
-        assert ref > 0 and ni[node, 3] == 0
-        left, right = int(ni[node, 0]), int(ni[node, 1])
-        np.testing.assert_array_equal(recs[ref, 0:6], box[left])
-        np.testing.assert_array_equal(recs[ref, 6:12], box[right])
-        todo.append((left, int(words[ref, 12]), level + 1))
-        todo.append((right, int(words[ref, 13]), level + 1))
+        assert ref > 0 and count[node] == 0
+        lc, rc = int(left[node]), int(right[node])
+        np.testing.assert_array_equal(recs[ref, 0:6], box[lc])
+        np.testing.assert_array_equal(recs[ref, 6:12], box[rc])
+        todo.append((lc, int(words[ref, 12]), level + 1))
+        todo.append((rc, int(words[ref, 13]), level + 1))
     return reached, depth
+
+
+def _walk_records(plan, ph, recs):
+    """walk_pair_records over one bvh2 tree of K1's plan, beside the
+    plan's per-node tables."""
+    M = ph.n_nodes
+    box = plan.nf[ph.nf_base:ph.nf_base + 6 * M].reshape(M, 6)
+    ni = plan.ni[ph.ni_base:ph.ni_base + 4 * M].reshape(M, 4)
+    return walk_pair_records(recs, box, ni[:, 0], ni[:, 1], ni[:, 2],
+                             ni[:, 3])
 
 
 @pytest.mark.parametrize("scene", ["testscene", "phase_kinds", "spheres",
@@ -275,8 +286,8 @@ def _walk_records(plan, ph, recs):
 def test_node_records_give_back_the_trees(scene):
     """Every bvh2 tree's child-pair records give back plan.nf / plan.ni
     exactly (each child box and leaf range, every node reached once),
-    each phase's descriptor points at its tree's records, and no tree is
-    deeper than the kernel's stack bound."""
+    each phase's descriptor points at its tree's records, and the
+    kernel's plan-sized stack holds the deepest tree's walk."""
     from glome_tpu_torch.scenes import test_scene
     from glome_tpu_torch.scenes.phasescene import block_scene
     if scene == "testscene":
@@ -303,7 +314,7 @@ def test_node_records_give_back_the_trees(scene):
         reached, depth = _walk_records(plan, ph,
                                        recs[base:base + 1 + n_inner])
         assert reached == ph.n_nodes
-        assert depth == ph.depth <= TMK.STACK_MAX
+        assert depth == ph.depth <= TMK.walk_stack(plan) + 1
     print(f"{scene}: {len(trees)} bvh2 trees, depths "
           f"{[plan.phases[i].depth for i in trees]}, {len(recs)} records")
 
@@ -340,3 +351,53 @@ def test_pbox_rows_are_the_padded_prim_boxes():
         np.testing.assert_array_equal(
             tables.pbox[base:base + g.size].numpy(),
             cull[n_sub:][torch.as_tensor(perm, dtype=torch.int64)].numpy())
+
+
+# --- a bvh2 tree deeper than a fixed stack -----------------------------------
+
+def test_chain_tree_is_deeper_than_32():
+    """phasescene.chain_scene's 200 shrinking spheres give one bvh2 tree
+    of depth 47, deeper than the 32 entries of K1's former fixed stack.
+    The plan-sized stack holds depth - 1 entries beside the staged
+    descriptor table within the card's shared memory, the tree's records
+    give it back, and the stack helper refuses only a tree the card's
+    shared memory cannot hold, naming its depth."""
+    plan = TMK.get_plan(T.compile_scene(chain_scene(), phase_kinds_lights()))
+    (i, ph), = [(i, ph) for i, ph in enumerate(plan.phases)
+                if ph.kind == "bvh2"]
+    assert ph.depth == 47
+    stack = TMK.walk_stack(plan)
+    assert stack == ph.depth - 1
+    n_meta = len(TMK.encode_phases(plan))
+    assert n_meta <= TMK.META_MAX
+    assert (stack * TK.WALK_THREADS * TK.STACK_ENTRY_BYTES + 4 * n_meta
+            <= TK.SMEM_BLOCK_MAX)
+    tab, bases = TMK.node_records(plan)
+    recs = tab.reshape(-1, TMK.NODE_W)[bases[i]:]
+    assert _walk_records(plan, ph, recs) == (ph.n_nodes, ph.depth)
+    full = TK.SMEM_BLOCK_MAX // (TK.WALK_THREADS * TK.STACK_ENTRY_BYTES)
+    assert TK.walk_stack(full + 1) == full
+    with pytest.raises(ValueError, match=f"depth {full + 2}"):
+        TK.walk_stack(full + 2)
+
+
+def test_select_chain_matches_pallas():
+    """K1's plain version against glome_tpu's Pallas mega_select
+    (interpret) on the depth-47 chain, which glome_tpu walks with a stack
+    sized from its plan: intersect (rays falling onto spheres all along
+    the chain) and shadow, this file's tolerances."""
+    cj, ct = _compile_both(lambda P: chain_scene(P=P))
+    arrays = T.to_torch(ct.arrays(), "cpu")
+    n = 600
+    o, d = chain_rays(n, seed=5)
+    sid = np.zeros(n, np.int32)
+    seed = np.full(n, 1e6, np.float32)
+    want = _jax_select(cj, o, d, seed)
+    got = _port_select(ct, arrays, o, d, seed, sid)
+    assert (want[1] >= 0).sum() > n // 2
+    _assert_select_close(got, want)
+    seed = np.full(n, 1.0, np.float32)
+    want = _jax_select(cj, o, d, seed, shadow=True)
+    got = _port_select(ct, arrays, o, d, seed, sid, shadow=True)
+    np.testing.assert_array_equal(got[1] >= 0, want[1] >= 0)
+    assert 0 < (got[1] >= 0).sum() < n

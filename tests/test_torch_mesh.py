@@ -37,13 +37,17 @@ from glome_tpu.materials import light as jlight
 from glome_tpu.render import Renderer as JRenderer
 from glome_tpu.scenes.meshscene import mesh_scene as j_mesh_scene
 from glome_tpu_torch import block_kernel as BK
+from glome_tpu_torch import kernels as TK
 from glome_tpu_torch import megakernel as MK
 from glome_tpu_torch import mesh_kernel as MSH
 from glome_tpu_torch.compile import group_device_params as t_group_params
 from glome_tpu_torch.io import quantize
 from glome_tpu_torch.materials import light as tlight
 from glome_tpu_torch.scenes import mesh_scene as t_mesh_scene
-from glome_tpu_torch.scenes.phasescene import block_rays, block_scene
+from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
+                                               chain_scene, tie_grid_rays,
+                                               tie_grid_scene)
+from test_torch_mega import walk_pair_records
 
 RTOL = 1e-5
 # t near 0 (a ray starting at a surface) carries the absolute rounding
@@ -170,16 +174,20 @@ def _mesh(P):
     return solid
 
 
+# the 320-sphere chain: a block tree 80 deep (CHAIN_RATIO, see
+# test_deep_block_tree_fits_the_walk_stack)
+CHAIN_SPHERES, CHAIN_RATIO = 320, 2.0 ** (-1 / 6)
 BLOCK_CASES = {"mesh": _mesh,
                "spheres": lambda P: block_scene("spheres", P),
                "difference": lambda P: block_scene("difference", P),
-               "transformed": lambda P: block_scene("transformed", P)}
+               "transformed": lambda P: block_scene("transformed", P),
+               "chain": lambda P: chain_scene(CHAIN_SPHERES, CHAIN_RATIO, P)}
 # t tolerance per case: sphere hits near grazing cancel in float32
 # (v - sqrt(disc)), so XLA's fused CPU code and torch's eager ops differ
 # there by up to 1.5e-5 (K1's tests hold spheres to 5e-5 for the same
 # reason, tests/test_torch_mega.py)
 BLOCK_RTOL = {"mesh": RTOL, "transformed": RTOL, "spheres": 5e-5,
-              "difference": 5e-5}
+              "difference": 5e-5, "chain": 5e-5}
 
 
 def _block_group(cc, constrained=False):
@@ -440,3 +448,155 @@ def test_mesh_frame_matches_glome_tpu(monkeypatch, route, cast_shadows):
     assert (diff > 64).sum() <= CANARY_FRAC * diff.size
     # the mesh is in view: most of the frame hits something
     assert (depth.numpy() < T.INFINITY).mean() > 0.5
+
+
+# --- (8) K2's and K3's trees as shared child-pair records -----------------
+
+def block_tree_rows(plan):
+    """Per node of a BlockPlan's tree: (box (M, 6), left, right, first row,
+    row count) with each leaf's rows those of its block in the unpermuted
+    table: block order[leaf_start], BP rows."""
+    bvh = plan.bvh
+    leaf = bvh.leaf_count > 0
+    assert (bvh.leaf_count[leaf] == 1).all()
+    block = np.asarray(bvh.order)[np.where(leaf, bvh.leaf_start, 0)]
+    return (np.concatenate([bvh.bmin, bvh.bmax], axis=1), bvh.left,
+            bvh.right, np.where(leaf, block * BK.BP, 0),
+            np.where(leaf, BK.BP, 0))
+
+
+def _mesh_group(n_tris):
+    st, lt, _ = t_mesh_scene(n_tris)
+    sc, gi = _block_group(T.compile_scene(st, lt))
+    return sc, sc.groups[gi]
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+@pytest.mark.parametrize("n_tris", [1500, 100_000])
+def test_block_trees_as_child_pair_records(kernel, n_tris):
+    """The child-pair records K2 and K3 walk (accel.node_records, the
+    layout of K1's records) give back every child box and leaf range of
+    their plans' binary block trees, on mesh 1500 and the 100k plan.  A
+    K2 leaf's rows are its block's; a K3 leaf's rows are a run of the
+    permuted table that holds exactly its blocks' triangles."""
+    sc, g = _mesh_group(n_tris)
+    if kernel == "K2":
+        plan = BK.get_block_plan(g, sc)
+        box, left, right, first, count = block_tree_rows(plan)
+    else:
+        plan = MSH.get_block_plan(g)
+        bvh = plan.bvh
+        box = np.concatenate([bvh.bmin, bvh.bmax], axis=1)
+        left, right = bvh.left, bvh.right
+        first, count = bvh.leaf_start * MSH.BP, bvh.leaf_count * MSH.BP
+        order = np.asarray(bvh.order)
+        for node in np.nonzero(bvh.leaf_count > 0)[0][::37]:
+            rows = np.arange(first[node], first[node] + count[node])
+            blocks = order[bvh.leaf_start[node]:
+                           bvh.leaf_start[node] + bvh.leaf_count[node]]
+            want = (blocks[:, None] * MSH.BP + np.arange(MSH.BP)).reshape(-1)
+            np.testing.assert_array_equal(plan.row_perm[rows], want)
+    recs = plan.nodes.reshape(-1, MK.NODE_W)
+    assert len(recs) == 1 + int((np.asarray(count) == 0).sum())
+    reached, depth = walk_pair_records(recs, box, left, right, first, count)
+    assert reached == plan.n_nodes and depth == plan.depth
+    assert TK.walk_stack(plan.depth) == plan.depth - 1
+    print(f"{kernel} mesh{n_tris}: {plan.n_blocks} blocks, {plan.n_nodes} "
+          f"nodes, depth {plan.depth}")
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_mesh_rows_are_padded_triangles(kernel):
+    """K2's and K3's 12-float triangle rows carry p1, p2, p3 unchanged,
+    then three zeros: K3's in leaf order (the triangle each permuted row
+    maps to through sel_to_local; padding rows all zero), K2's in the
+    group's order (padding rows copy the last)."""
+    st, lt, _ = t_mesh_scene(1500)
+    ct = T.compile_scene(st, lt)
+    sc, gi = _block_group(ct)
+    g = sc.groups[gi]
+    ga = t_group_params(g, T.to_torch(ct.arrays(), "cpu")["scenes"][0][gi])
+    p123 = np.concatenate([ga[k].numpy() for k in ("p1", "p2", "p3")], 1)
+    if kernel == "K3":
+        plan = MSH.get_block_plan(g)
+        tri = MSH.pack_tri_blocks(plan, ga).numpy()
+        assert tri.shape == (plan.n_blocks * MSH.BP, 12) and MSH.TRI_F == 12
+        real = plan.sel_to_local >= 0
+        want = p123[plan.sel_to_local[real]]
+        assert (tri[~real] == 0).all()
+    else:
+        plan = BK.get_block_plan(g, sc)
+        assert plan.F == BK.TRI_F == 12
+        tri = BK.pack_blocks(plan, ga).numpy().reshape(-1, 12)
+        assert tri.shape == (plan.n_blocks * BK.BP, 12)
+        real = np.arange(len(tri)) < g.size
+        want = p123
+        np.testing.assert_array_equal(tri[~real], tri[g.size - 1:g.size]
+                                      .repeat((~real).sum(), 0))
+    np.testing.assert_array_equal(tri[real, :9], want)
+    assert (tri[real, 9:] == 0).all()
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K3"])
+def test_plain_versions_take_the_lowest_tied_row(kernel):
+    """On phasescene's flat quad grid, vertical rays through shared
+    edges and vertices meet several triangles at bit-exactly the same t
+    (asserted: many lanes have more than one row at the winning t).
+    block_select_plain and mesh_block_select_plain return the lowest of
+    those rows, the rule K2 and K3 follow whatever order their walks
+    visit the rows in."""
+    ct = T.compile_scene(tie_grid_scene(), [tlight((0, 8, 0), (1, 1, 1))])
+    sc = ct.scenes[0]
+    (g,) = sc.groups
+    assert g.ptype == "triangle" and g.size == 512
+    arr = T.to_torch(ct.arrays(), "cpu")["scenes"][0]
+    ga = t_group_params(g, arr[0])
+    n = 2048
+    o, d = tie_grid_rays(n, seed=3)
+    seed_t = np.full(n, 1e6, np.float32)
+    seed_t[::17] = 0.0                   # dead lanes
+    table, seed = _table(o, d, seed_t), torch.as_tensor(seed_t)
+    if kernel == "K2":
+        plan = BK.get_block_plan(g, sc)
+        tab = BK.pack_blocks(plan, ga)
+        rows = tab.reshape(-1, plan.F)
+        t, sel = BK.block_select(plan, tab, BK.pack_cons(plan, sc, arr, "cpu"),
+                                 table, seed)
+        row = sel // 2
+        assert (sel[sel >= 0] % 2 == 0).all()
+    else:
+        plan = MSH.get_block_plan(g)
+        rows = MSH.pack_tri_blocks(plan, ga)
+        t, row = MSH.mesh_block_select(plan, rows, table, seed)
+    t0, _t1 = MK._candidates("triangle", rows, 9, False,
+                             torch.as_tensor(o), torch.as_tensor(d))
+    at = (t0 == t[:, None]) & (t0 > 0)
+    hit = (row >= 0).numpy()
+    n_tie = int((at.sum(1) > 1).numpy()[hit].sum())
+    print(f"{kernel}: {int(hit.sum())}/{n} hit, {n_tie} lanes with more than "
+          f"one row at the winning t")
+    assert n_tie > n // 4
+    lowest = torch.argmax(at.to(torch.int32), dim=1)
+    np.testing.assert_array_equal(row.numpy()[hit], lowest.numpy()[hit])
+    assert (row.numpy()[seed_t == 0] == -1).all()
+
+
+def test_deep_block_tree_fits_the_walk_stack():
+    """A K2 block tree deeper than the 64 entries of its former fixed
+    stack: phasescene.chain_scene(320, 2^(-1/6)), 320 spheres shrinking
+    geometrically (the smallest 1e-16 across, still apart in float32),
+    cut into 80 blocks of 4, gives a tree 80 deep, one block peeled off
+    per level (chip_smoke.py calls block_select on that group directly,
+    as here).  The stack helper gives it 79 entries, which the card's
+    shared memory holds, and the records give the tree back."""
+    ct = T.compile_scene(chain_scene(CHAIN_SPHERES, CHAIN_RATIO),
+                         [tlight((0, 8, 0), (1, 1, 1))])
+    sc = ct.scenes[0]
+    plan = BK.get_block_plan(sc.groups[0], sc)
+    assert plan.n_blocks == 80 and plan.depth == 80
+    stack = TK.walk_stack(plan.depth)
+    assert stack == 79
+    assert stack * TK.WALK_THREADS * TK.STACK_ENTRY_BYTES <= TK.SMEM_BLOCK_MAX
+    reached, depth = walk_pair_records(plan.nodes.reshape(-1, MK.NODE_W),
+                                       *block_tree_rows(plan))
+    assert (reached, depth) == (plan.n_nodes, 80)
