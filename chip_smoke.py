@@ -68,8 +68,15 @@ micro_kwide), and checks them in phases:
      shadow rays, held against the plain version on the whole batch; and
      on every dense group of the all-phase-kinds and CSG scenes and of
      block_scene's difference and rotated-box scenes (65,536 rays);
- 13. K5 against bvh_select_plain likewise, on TestScene's two lattice
-     groups (one with an inline constraint) and on a 20,000-sphere group;
+ 13. K5 against bvh_select_plain, equal on every lane, winners
+     included: on TestScene's two lattice groups (one with an inline
+     constraint; all L0 rays and all their shadow rays), on the
+     20,000-sphere group of phasescene.sphere_cloud_scene, on the
+     1,000-sphere chain of phasescene.coincident_scene (a skip-link chain
+     250 leaves long, whose converted tree is reported: every hit ties
+     all 1,000 rows) and on the tie grid as a K5 group; then the
+     coincident chain rendered at 96x64 on the group route through the
+     kernels against the plain set, under the canaries;
  14. TestScene frame 720x480 depth 3 on the group route through K4/K5:
      per intersect or shadow batch one K4 launch per dense group and one
      K5 launch per BVH group of the compiled scene (7 and 2), no K1-K3
@@ -94,17 +101,18 @@ micro_kwide), and checks them in phases:
      4, 8, 16 (visited nodes per tile, exactly the plain version's) and
      the scratch reads at NREAD = 16, 64.
 
-Kernel against plain: K2 and K3 equal their plain versions on every
-lane (hit or blocked, t bit for bit, and the winner: both take the
-lowest row of an exact tie).  K1, K4 and K5: hit/blocked agree on >=
+Kernel against plain: K2, K3 and K5 equal their plain versions on
+every lane (hit or blocked, t bit for bit, and the winner: each takes
+the lowest row of an exact tie).  K1 and K4: hit/blocked agree on >=
 99.9% of lanes, t within rtol 5e-5 / atol 1e-4 on >= 99.9% of the
 agreeing lanes, and the winner differs beyond a distance tie on <= 0.1%
 of lanes.
 
 Each kernel's entry in the kernels line also carries "ptxas": the
 registers, stack frame and spills ptxas gave its normal (non-counting)
-build; K1-K3 also "smem_bytes", the dynamic shared memory of their
-plan-sized walk stacks at the main path's launch.
+build; K1-K3 and K5 also "smem_bytes", the dynamic shared memory of
+their plan-sized walk stacks at the main path's launch (K5's: the
+biggest lattice group's).
 
 In the kernels line each M1 and M2 variant is an entry of its own, named
 "micro_prims.<variant>" or "micro_kwide.<variant>": it has its own C
@@ -247,19 +255,23 @@ def main():
     from glome_tpu_torch import kernels
     from glome_tpu_torch import megakernel as MK
     from glome_tpu_torch import mesh_kernel as MSH
-    from glome_tpu_torch.compile import group_accel
+    from glome_tpu_torch.compile import (group_accel,
+                                         materialize_scene_params)
     from glome_tpu_torch.io import quantize, read_png, write_png
     from glome_tpu_torch.scenes import mesh_scene, test_scene
     from glome_tpu_torch.tools import kernel_ab as KAB
     from glome_tpu_torch.tools import micro_kwide as MKW
     from glome_tpu_torch.tools import micro_prims as MPR
     from glome_tpu_torch.tools.device_time import device_time
+    from glome_tpu_torch.render import camera
     from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
                                                    chain_rays, chain_scene,
+                                                   coincident_scene,
                                                    csg_rays, csg_scene,
                                                    phase_kinds_lights,
                                                    phase_kinds_rays,
                                                    phase_kinds_scene,
+                                                   sphere_cloud_scene,
                                                    tie_grid_rays,
                                                    tie_grid_scene)
     from glome_tpu_torch.trace import _light_arrays
@@ -1098,7 +1110,11 @@ def main():
             tabs = [a for a in list(args) + list(kw.values())
                     if torch.is_tensor(a)] + [args[-1].cf, args[-1].desc]
             if kind == "bvh":
-                tabs += list(GK._bvh_tables(args[1], dev))
+                recs = GK.bvh_records(args[1], dev)
+                tabs.append(recs.nodes)
+                entries[name]["smem_bytes"] = (
+                    kernels.walk_stack(recs.depth) * kernels.WALK_THREADS
+                    * kernels.STACK_ENTRY_BYTES)
             # o, d and the seed in; t and the winner out
             bound(name, 28 * n, 8 * n,
                   sum(t.numel() * t.element_size() for t in tabs),
@@ -1108,16 +1124,20 @@ def main():
 
     # -- 12. K4 against the plain version -----------------------------------
     def check_group(label, fn, plain, args, kw, rays, seed, shadow):
+        """K4 or K5 against its plain version; K5 exactly."""
         k = fn(*args, rays, seed, shadow=shadow, **kw)
         p = plain(*args, rays, seed, shadow=shadow, **kw)
         torch.cuda.synchronize()
-        return compare(label, as_np(k), as_np(p), shadow)
+        return compare(label, as_np(k), as_np(p), shadow,
+                       exact=fn is GK.bvh_select)
 
     def check_scene_groups(cc, make_rays, sh_t, kinds):
         """Every K4/K5 group of cc (of the given kinds) on SUBSET of the
         scene's own rays, intersect and shadow."""
         ok = True
         garrs = T.to_torch(cc.arrays(), dev)
+        garrs["scenes"] = [materialize_scene_params(sc, ga) for sc, ga in
+                           zip(cc.scenes, garrs["scenes"])]
         o, d = make_rays(SUBSET, seed=4)
         for shadow, seed_t in ((False, T.INFINITY), (True, sh_t)):
             rays = torch.as_tensor(np.stack(
@@ -1175,25 +1195,63 @@ def main():
     phase("12 K4 vs plain", p_k4)
 
     # -- 13. K5 against the plain version -----------------------------------
+    def k5_tree(label, g):
+        """Print a K5 group's skip-link tree and its converted records."""
+        bvh = group_accel(g)
+        recs = GK.bvh_records(bvh, dev)
+        print(f"  {label}: skip-link tree {bvh.n_nodes} nodes, records of "
+              f"{recs.n_nodes} nodes, depth {recs.depth}, walk stack "
+              f"{kernels.walk_stack(recs.depth)} entries per thread")
+        return recs
+
     def p_k5():
+        for si, gi, k_ in groups_ts:
+            if k_ == "bvh":
+                k5_tree(f"TestScene {group_label(compiled, si, gi)}",
+                        compiled.scenes[si].groups[gi])
         ok, err = check_testscene_groups("bvh")
         entries["bvh_select"]["max_abs_err"] = err
         # a deeper tree than TestScene's: 20,000 spheres in one group
-        rng = np.random.default_rng(12)
-        big = T.compile_scene(T.group(
-            [T.sphere(tuple(rng.uniform(-10, 10, 3)),
-                      float(rng.uniform(0.05, 0.25))) for _ in range(20_000)]),
-            phase_kinds_lights())
         t0 = time.perf_counter()
-        bvh = group_accel(big.scenes[0].groups[0])
-        lattice = [group_accel(compiled.scenes[si].groups[gi]).n_nodes
-                   for si, gi, k_ in groups_ts if k_ == "bvh"]
-        print(f"  20,000-sphere group: {bvh.n_nodes} nodes, built in "
-              f"{time.perf_counter() - t0:.2f} s (TestScene's lattice "
-              f"groups: {lattice} nodes)")
+        big = T.compile_scene(sphere_cloud_scene(), phase_kinds_lights())
+        group_accel(big.scenes[0].groups[0])
+        print(f"  20,000-sphere group: compiled and tree built in "
+              f"{time.perf_counter() - t0:.2f} s")
+        k5_tree("20,000-sphere group", big.scenes[0].groups[0])
         ok &= check_scene_groups(
             big, lambda n, seed: block_rays(n, seed, span=14.0), 7.0,
             ("bvh",))
+        # a chain of unsplittable leaves: 1,000 coincident spheres, every
+        # hit an exact tie of all rows (the winner is leaf row 0)
+        co = T.compile_scene(coincident_scene(), phase_kinds_lights(),
+                             accel_min_size=64)
+        recs = k5_tree("1,000 coincident spheres",
+                       co.scenes[0].groups[0])
+        ok &= recs.depth <= 12
+        ok &= check_scene_groups(co, block_rays, 7.0, ("bvh",))
+        # the tie grid's 512 flat triangles as one K5 group
+        tg = T.compile_scene(tie_grid_scene(), phase_kinds_lights(),
+                             accel_min_size=64)
+        k5_tree("tie grid", tg.scenes[0].groups[0])
+        ok &= check_scene_groups(tg, tie_grid_rays, 5.0, ("bvh",))
+        # the coincident chain rendered through K5 and through the plain set
+        ccfg = T.RenderConfig.tuned(xres=96, yres=64)
+        ccam = camera((0.0, 1.0, -6.0), (0, 0, 0), (0, 1, 0), 45)
+        carrs = T.to_torch(co.arrays(), dev)
+        imgs = {}
+        for sel in (MK.KERNELS, MK.PLAIN):
+            r = T.Renderer(T.WavefrontTracer(co, ccfg, select=sel,
+                                             route=TI.GROUPS), ccam, ccfg)
+            reset_counts()
+            rgb, _depth = r.render(carrs)
+            counts = read_counts(f"coincident_96x64_groups_{sel}")
+            imgs[sel] = rgb.cpu().numpy()
+            launched = (counts["bvh_select"] > 0 and counts["plain"] == 0
+                        if sel == MK.KERNELS else counts["bvh_select"] == 0)
+            ok &= (launched and int(r.last_overflow.sum()) == 0
+                   and bool(np.isfinite(imgs[sel]).all()))
+        ok &= canaries_ok("coincident chain 96x64, kernels vs plain",
+                          quantize(imgs[MK.KERNELS]), quantize(imgs[MK.PLAIN]))
         return ok
     phase("13 K5 vs plain", p_k5)
 

@@ -12,11 +12,12 @@ reference's Mesh BVH, Mesh.hs:69-113):
     per-ray stack walk of the megakernel's 'bvh2' phases;
   - build_bvh: DFS order with *skip links* (on a box miss jump to
     node.skip, on a hit fall through to node+1), used for the
-    stackless point queries over big CSG member sets and K5's group
-    walk (compile.group_accel).
+    stackless point queries over big CSG member sets and as K5's group
+    tree (compile.group_accel).
 
-node_records lays a build_bvh2 tree out as the child-pair records the
-CUDA near-first walks read (K1, K2, K3; csrc/bvh_walk.cuh).
+node_records lays a binary tree out as the child-pair records the CUDA
+near-first walks read (K1, K2, K3, K5; csrc/bvh_walk.cuh): a build_bvh2
+tree, or for K5 a build_bvh tree made binary by skip_link_pairs.
 
 The builders are pure numpy; glome_tpu's C++ builder
 (glome_tpu/native/bvh_builder.cpp) emits identical tables on the
@@ -314,6 +315,74 @@ def build_bvh(bmin: np.ndarray, bmax: np.ndarray,
         skip=np.asarray(nodes_skip, dtype=np.int32),
         order=np.asarray(order, dtype=np.int32),
     )
+
+
+def skip_link_pairs(bvh: BvhFlat) -> Bvh2:
+    """The skip-link tree `bvh` (build_bvh) as a strictly binary tree over
+    the same rows in the same leaf order, for node_records (K5's
+    child-pair records): an internal node n has the children n + 1 and
+    skip[n + 1], each leaf keeps its box and its row range.
+
+    A chain -- a leaf node that build_bvh could not split and that goes
+    on at n + 1 with the rest of its rows, so it is both a leaf and a
+    parent -- becomes a balanced subtree over its links: each link's own
+    rows as a leaf with the link's box (a superset: it bounds the rest of
+    the chain too), and the node that ends the chain.  Its depth grows
+    with the log of the chain's length, where a node-by-node conversion
+    would be as deep as the chain is long.  Node 0 is the root; `depth`
+    counts the root as 1."""
+    if bvh.n_nodes == 0:
+        raise ValueError("an empty group has no tree to convert")
+    lo = np.asarray(bvh.bmin, np.float32)
+    hi = np.asarray(bvh.bmax, np.float32)
+    skip = np.asarray(bvh.skip, np.int64)
+    start = np.asarray(bvh.leaf_start, np.int64)
+    count = np.asarray(bvh.leaf_count, np.int64)
+    nb_min, nb_max, left, right, first, rows = [], [], [], [], [], []
+
+    def new(items):
+        """A node for the items, (link, n): the rows of the chain link n
+        alone, or (node, n): the subtree at n; its box bounds them all."""
+        ns = [n for _kind, n in items]
+        nb_min.append(lo[ns].min(axis=0))
+        nb_max.append(hi[ns].max(axis=0))
+        for a in (left, right, first):
+            a.append(-1)
+        rows.append(0)
+        return len(rows) - 1
+
+    LINK, NODE = 0, 1
+    work = [(new([(NODE, 0)]), [(NODE, 0)], 1)]
+    depth = 1
+    while work:
+        me, items, level = work.pop()
+        depth = max(depth, level)
+        if len(items) == 1:
+            kind, n = items[0]
+            if kind == LINK or (count[n] > 0 and skip[n] == n + 1):
+                first[me], rows[me] = int(start[n]), int(count[n])
+                continue
+            if count[n] == 0:
+                items = [(NODE, n + 1), (NODE, int(skip[n + 1]))]
+            else:
+                # a chain: its links, then the node that ends it
+                items, c = [], n
+                while count[c] > 0 and skip[c] != c + 1:
+                    items.append((LINK, c))
+                    c += 1
+                items.append((NODE, c))
+        h = len(items) // 2
+        left[me], right[me] = new(items[:h]), new(items[h:])
+        work.append((right[me], items[h:], level + 1))
+        work.append((left[me], items[:h], level + 1))
+    n_out = len(rows)
+    return Bvh2(bmin=np.asarray(nb_min, np.float32).reshape(n_out, 3),
+                bmax=np.asarray(nb_max, np.float32).reshape(n_out, 3),
+                left=np.asarray(left, np.int32),
+                right=np.asarray(right, np.int32),
+                leaf_start=np.asarray(first, np.int32),
+                leaf_count=np.asarray(rows, np.int32),
+                order=np.asarray(bvh.order, np.int32), depth=depth)
 
 
 def node_records(bmin: np.ndarray, bmax: np.ndarray, left: np.ndarray,

@@ -1,7 +1,8 @@
 // The near-first walk of a strictly binary BVH stored as child-pair
-// records, shared by K2 (block_select.cu) and K3 (mesh_block_select.cu);
-// K1 (mega_select.cu) reads the same records and the same shared stack
-// with its own walk, whose tie rule is the reference's strict <.
+// records, shared by K2 (block_select.cu), K3 (mesh_block_select.cu) and
+// K5 (bvh_select.cu); K1 (mega_select.cu) reads the same records and the
+// same shared stack with its own walk, whose tie rule is the reference's
+// strict <.
 //
 // A record (accel.node_records) is 64 aligned bytes: both children's
 // boxes (bmin xyz, bmax xyz each, floats 0-11) and their references

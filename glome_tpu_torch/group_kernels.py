@@ -18,6 +18,8 @@ differentiably.
   - encode_constraints: a group's inline constraints as the descriptor
     and flat member rows of csrc/cons.cuh (block_kernel.encode_cons's
     format, any number of rows);
+  - bvh_records: K5's child-pair records of a group's skip-link BVH
+    (accel.skip_link_pairs), cached on the tree per device;
   - dense_select (K4, csrc/dense_select.cu) and bvh_select (K5,
     csrc/bvh_select.cu): the hand-written CUDA kernels on CUDA tensors,
     their plain torch versions dense_select_plain / bvh_select_plain on
@@ -275,28 +277,39 @@ def dense_select(ptype: str, params_T, m_inv, vis, cons: Constraints, rays,
 dense_select.launches = 0
 
 
-def _bvh_tables(bvh, device):
-    """(nf (M*6,) float32, ni (M*3,) int32 [skip, leaf_start, count]) of
-    a skip-link BVH on `device`, cached on the tree per device."""
+class BvhRecords(NamedTuple):
+    """A group's skip-link BVH as K5 walks it: `nodes` the flat float32
+    child-pair records (accel.node_records) of accel.skip_link_pairs(bvh)
+    on a device, `n_nodes` and `depth` that binary tree's node count and
+    depth (the root at depth 1)."""
+    nodes: torch.Tensor
+    n_nodes: int
+    depth: int
+
+
+def bvh_records(bvh, device) -> BvhRecords:
+    """K5's records of the skip-link BVH `bvh` on `device`, cached on the
+    tree per device."""
+    from . import accel as A
     cache = bvh.__dict__.setdefault("_dev", {})
     key = str(device)
     if key not in cache:
-        nf = np.concatenate([np.asarray(bvh.bmin, np.float32),
-                             np.asarray(bvh.bmax, np.float32)], axis=1)
-        ni = np.stack([np.asarray(bvh.skip, np.int32),
-                       np.asarray(bvh.leaf_start, np.int32),
-                       np.asarray(bvh.leaf_count, np.int32)], axis=1)
-        cache[key] = (torch.as_tensor(nf.reshape(-1), device=device),
-                      torch.as_tensor(ni.reshape(-1), device=device))
+        pairs = A.skip_link_pairs(bvh)
+        recs = A.node_records(pairs.bmin, pairs.bmax, pairs.left,
+                              pairs.right, pairs.leaf_start, pairs.leaf_count)
+        cache[key] = BvhRecords(
+            torch.as_tensor(recs.reshape(-1), device=device), pairs.n_nodes,
+            pairs.depth)
     return cache[key]
 
 
 def bvh_select(ptype: str, bvh, rows, vis, cons: Constraints, rays, seed,
                shadow: bool = False, tally=None):
     """Nearest valid candidate of every ray against one untransformed
-    group through its skip-link BVH (K5).
+    group through its BVH (K5).
 
-    bvh: the group's accel.BvhFlat (compile.group_accel); rows: (P, F)
+    bvh: the group's skip-link accel.BvhFlat (compile.group_accel),
+    walked as the child-pair records of bvh_records; rows: (P, F)
     float32 params in LEAF order (bvh.order applied; pack_params_rows);
     vis: (P,) float32 0/1 in leaf order; cons, rays, seed as in
     dense_select.  Returns (t, leaf): leaf indexes the leaf order (the
@@ -323,16 +336,17 @@ def bvh_select(ptype: str, bvh, rows, vis, cons: Constraints, rays, seed,
     n = rays.shape[1]
     if n == 0:
         return t, leaf
-    nf, ni = _bvh_tables(bvh, rays.device)
+    recs = bvh_records(bvh, rays.device)
     lib = kernels.bvh_select_lib()
     with torch.cuda.device(rays.device):
         stream = torch.cuda.current_stream(rays.device).cuda_stream
         err = lib.glome_bvh_select(
-            rays.data_ptr(), n, seed.data_ptr(), nf.data_ptr(),
-            ni.data_ptr(), bvh.n_nodes, rows.data_ptr(), vis.data_ptr(), F,
-            PTYPE_CODE[ptype], cons.cf.data_ptr(), cons.desc.data_ptr(),
-            int(bool(shadow)), t.data_ptr(), leaf.data_ptr(),
-            kernels.tally_ptr(tally), ctypes.c_void_p(stream))
+            rays.data_ptr(), n, seed.data_ptr(), recs.nodes.data_ptr(),
+            recs.n_nodes, kernels.walk_stack(recs.depth), rows.data_ptr(),
+            vis.data_ptr(), F, PTYPE_CODE[ptype], cons.cf.data_ptr(),
+            cons.desc.data_ptr(), int(bool(shadow)), t.data_ptr(),
+            leaf.data_ptr(), kernels.tally_ptr(tally),
+            ctypes.c_void_p(stream))
     kernels.check_launch(lib, err, "bvh_select")
     bvh_select.launches += 1
     return t, leaf
@@ -404,10 +418,10 @@ dense_select_plain.calls = 0
 def bvh_select_plain(ptype: str, bvh, rows, vis, cons: Constraints, rays,
                      seed, shadow: bool = False):
     """Plain torch version of bvh_select: brute force over the group's
-    rows in leaf order (the tree only culls, and the kernel's walk meets
-    the leaves in that order), so the first row in leaf order wins a tie
-    in both.  Shadow mode finds the nearest blocker, as in
-    dense_select_plain."""
+    rows in leaf order (the tree only culls).  The first row in leaf
+    order wins a tie, as the kernel's least (t, row) does whatever order
+    its walk visits the leaves in, so the two agree on every lane.
+    Shadow mode finds the nearest blocker, as in dense_select_plain."""
     bvh_select_plain.calls += 1
     return _brute(ptype, rows, False, vis, cons, rays, seed)
 

@@ -3,14 +3,16 @@
 Each kernel source is compiled at first use with nvcc into a shared
 library with a plain C interface and loaded with ctypes.  The library
 lands in `build/` at the repository root, named by a hash of the
-sources and the flags, so an unchanged source is compiled once per
-checkout.  Nothing here runs at import time: this module (and every
-module importing it) loads on machines without nvcc or a GPU.
+sources, the flags and nvcc's version (build_key), so an unchanged
+source is compiled once per checkout and toolkit.  Nothing here runs at
+import time: this module (and every module importing it) loads on
+machines without nvcc or a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,7 +43,8 @@ BLOCK_SOURCES = ("block_select.cu", "prims.cuh", "walk.cuh", "cons.cuh",
 MESH_SOURCES = ("mesh_block_select.cu", "prims.cuh", "walk.cuh",
                 "bvh_walk.cuh")
 DENSE_SOURCES = ("dense_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
-BVH_SOURCES = ("bvh_select.cu", "prims.cuh", "walk.cuh", "cons.cuh")
+BVH_SOURCES = ("bvh_select.cu", "prims.cuh", "walk.cuh", "cons.cuh",
+               "bvh_walk.cuh")
 MICRO_PRIMS_SOURCES = ("micro_prims.cu", "micro.cuh")
 MICRO_KWIDE_SOURCES = ("micro_kwide.cu", "micro.cuh")
 LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
@@ -50,11 +53,12 @@ LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
              "glome_micro_prims": MICRO_PRIMS_SOURCES,
              "glome_micro_kwide": MICRO_KWIDE_SOURCES}
 
-# The near-first walks of K1-K3 (csrc/bvh_walk.cuh) keep their deferred
-# subtrees on a stack in dynamic shared memory: WALK_THREADS threads per
-# CTA, one 8-byte (reference, near) entry each per level.  A CTA may hold
-# SMEM_BLOCK_MAX bytes of shared memory on an H100 (232,448 of the SM's
-# 256 KB, above 48 KB only after opting in), so at most 227 entries.
+# The near-first walks of K1-K3 and K5 (csrc/bvh_walk.cuh) keep their
+# deferred subtrees on a stack in dynamic shared memory: WALK_THREADS
+# threads per CTA, one 8-byte (reference, near) entry each per level.  A
+# CTA may hold SMEM_BLOCK_MAX bytes of shared memory on an H100 (232,448
+# of the SM's 256 KB, above 48 KB only after opting in), so at most 227
+# entries.
 WALK_THREADS = 128
 STACK_ENTRY_BYTES = 8
 SMEM_BLOCK_MAX = 232_448
@@ -95,16 +99,36 @@ def nvcc_path() -> str:
     return path
 
 
-def build(sources, name: str, csrc: str = CSRC) -> str:
-    """Compile sources[0] (the others are its headers, all in `csrc`)
-    into build/lib<name>_<hash>.so unless that file exists; returns its
-    path.  BUILD_INFO[path] records the build seconds and the log (nvcc
-    and ptxas -v), which is also kept beside the library as .so.log."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+@functools.lru_cache(maxsize=None)
+def nvcc_version() -> str:
+    """nvcc --version's output (read once per process)."""
+    proc = subprocess.run([nvcc_path(), "--version"], capture_output=True,
+                          text=True, timeout=60)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc --version failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout
+
+
+def build_key(sources, version: str, csrc: str = CSRC) -> str:
+    """The hash that names a library: its sources' names and contents (in
+    `csrc`), NVCC_FLAGS and the nvcc `version` text, so a change of any
+    of them, a new toolkit included, builds a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + b"\0"
+                       + version.encode())
     for s in sources:
         with open(os.path.join(csrc, s), "rb") as f:
             h.update(s.encode() + b"\0" + f.read())
-    out = os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def build(sources, name: str, csrc: str = CSRC) -> str:
+    """Compile sources[0] (the others are its headers, all in `csrc`)
+    into build/lib<name>_<build_key>.so unless that file exists; returns
+    its path.  BUILD_INFO[path] records the build seconds and the log
+    (nvcc and ptxas -v), which is also kept beside the library as .so.log."""
+    key = build_key(sources, nvcc_version(), csrc)
+    out = os.path.join(BUILD_DIR, f"lib{name}_{key}.so")
     if os.path.exists(out):
         if out not in BUILD_INFO:
             log = "(cached)"
@@ -182,7 +206,7 @@ def _setup_dense(lib):
 
 
 def _setup_bvh(lib):
-    lib.glome_bvh_select.argtypes = [_vp, _i32, _vp, _vp, _vp, _i32, _vp,
+    lib.glome_bvh_select.argtypes = [_vp, _i32, _vp, _vp, _i32, _i32, _vp,
                                      _vp, _i32, _i32, _vp, _vp, _i32, _vp,
                                      _vp, _vp, _vp]
     lib.glome_bvh_select.restype = _i32

@@ -267,3 +267,27 @@ def tie_grid_rays(n, seed=0, grid=16):
     # from y = 3 (exactly 3 above the target for the vertical rays)
     o = at - d * (3.0 / -d[:, 1:2])
     return o.astype(np.float32), d.astype(np.float32)
+
+
+def sphere_cloud_scene(n=20_000, P=None):
+    """One plain group of n spheres at random in a cube of half-width 10,
+    radii 0.05-0.25 (seed 12), built with package P: a deeper tree for
+    the pass-per-group route's BVH (K5) than TestScene's lattice groups.
+    Rays: block_rays(n, seed, span=14.0)."""
+    P = _package(P)
+    rng = np.random.default_rng(12)
+    return P.group([P.sphere(tuple(rng.uniform(-10, 10, 3)),
+                             float(rng.uniform(0.05, 0.25)))
+                    for _ in range(n)])
+
+
+def coincident_scene(n=1000, P=None):
+    """One plain group of n spheres of radius 1 all at the origin, built
+    with package P.  No split separates them, so the skip-link tree
+    (accel.build_bvh) is a chain of leaves n / 4 long, and every ray
+    that hits one sphere meets all n at bit-exactly the same t: exact
+    ties between all rows.  The group gets that tree on the
+    pass-per-group route once compiled with accel_min_size below n.
+    Rays: block_rays."""
+    P = _package(P)
+    return P.group([P.sphere((0.0, 0.0, 0.0), 1.0) for _ in range(n)])

@@ -1,4 +1,4 @@
-"""K1-K4 against an earlier commit's kernels on the card, in turns, and
+"""K1-K5 against an earlier commit's kernels on the card, in turns, and
 K1's cost per phase.
 
     python -m glome_tpu_torch.tools.kernel_ab --old build/parent
@@ -17,7 +17,11 @@ of the parameter lists of OLD_ENTRIES:
     per_node_tables);
   - K3 (csrc/mesh_block_select.cu) walking a skip-link tree over its
     blocks, with 9-float rows in that tree's leaf order (the tool
-    rebuilds that plan, skip_link_plan).
+    rebuilds that plan, skip_link_plan);
+  - K5 (csrc/bvh_select.cu) walking the group's skip-link tree itself
+    (nf, ni = [skip, leaf start, count] per node; the tool rebuilds them,
+    skip_link_tables), or its child-pair records as this checkout does
+    (a variant of this checkout's kernel, built from another tree).
 
 It refuses (exit 2) an --old tree that declares none of them.  The old
 sources are built with this checkout's nvcc flags.  It prints, with the
@@ -67,7 +71,7 @@ from .. import intersect as TI
 from .. import kernels
 from .. import megakernel as MK
 from .. import mesh_kernel as MSH
-from ..compile import group_device_params
+from ..compile import group_accel, group_device_params
 from .device_time import device_time
 
 # the earlier commits' C entries, source -> {design: (name, parameter list
@@ -111,7 +115,23 @@ OLD_ENTRIES = {
             "const int* ni, int n_nodes, const float* tri, int bp, "
             "int shadow, float* out_t, int* out_s, int* tally, "
             "void* stream")},
+    "bvh_select.cu": {
+        "skip links": (
+            "glome_bvh_select",
+            "const float* rays, int n, const float* seeds, const float* nf, "
+            "const int* ni, int n_nodes, const float* rows, const float* vis, "
+            "int F, int ptype, const float* cf, const int* cdesc, int shadow, "
+            "float* out_t, int* out_l, int* tally, void* stream"),
+        "child-pair records": (
+            "glome_bvh_select",
+            "const float* rays, int n, const float* seeds, "
+            "const float* nodes, int n_nodes, int stack, const float* rows, "
+            "const float* vis, int F, int ptype, const float* cf, "
+            "const int* cdesc, int shadow, float* out_t, int* out_l, "
+            "int* tally, void* stream")},
 }
+# K5's rays on the check groups beyond TestScene
+K5_RAYS = 65536
 MESH_RES = (1920, 1080)
 
 
@@ -387,7 +407,8 @@ def main(argv=None) -> int:
         times = [ms(fns[v]) for v in order]
         return times, [before, clocks()]
 
-    need_ts = any(s in designs for s in ("mega_select.cu", "dense_select.cu"))
+    need_ts = any(s in designs for s in ("mega_select.cu", "dense_select.cu",
+                                         "bvh_select.cu"))
     if need_ts:
         solid, lights, cam = test_scene()
         compiled = T.compile_scene(solid, lights)
@@ -538,12 +559,51 @@ def main(argv=None) -> int:
                       f"new / old {_fmt(row['turns_old_on_new_blocks'])}; "
                       f"tests per ray {row['tally old on new blocks']}")
             out[key][label] = row
+    # -- K5 on TestScene's lattice groups and the two check groups
+    if "bvh_select.cu" in designs:
+        out["k5"] = {}
+        for label, sc, garrs, gi, batches in _k5_cases(compiled, arrays, q0,
+                                                        dev):
+            bvh = group_accel(sc.groups[gi])
+            recs = GK.bvh_records(bvh, dev)
+            print(f"  K5 {label}: skip-link tree {bvh.n_nodes} nodes; records "
+                  f"of {recs.n_nodes} nodes, depth {recs.depth}, walk stack "
+                  f"{kernels.walk_stack(recs.depth)} entries per thread")
+            for mode, rays, seed in batches:
+                shadow = mode == "shadow"
+                runs = _k5_runs(olds["bvh_select.cu"],
+                                designs["bvh_select.cu"],
+                                TI.bvh_args(sc, garrs, gi, shadow, dev)[0],
+                                dev, stream, any_lib)
+                n = rays.shape[1]
+                (to, lo), (tn, ln) = (runs["old"](rays, seed, shadow),
+                                      runs["new"](rays, seed, shadow))
+                same = bool(torch.equal(lo >= 0, ln >= 0) if shadow else
+                            torch.equal(to, tn) and torch.equal(lo, ln))
+                row = {"rays": n, "new_equals_old": same,
+                       "hits_new": int((ln >= 0).sum())}
+                row["turns_old_new"], row["clocks"] = turns(
+                    {v: (lambda f=f: f(rays, seed, shadow))
+                     for v, f in runs.items()})
+                for vname, fn in runs.items():
+                    tl = torch.zeros((2, n), dtype=torch.int32, device=dev)
+                    fn(rays, seed, shadow, tally=tl)
+                    row[f"tally {vname}"] = (tl.sum(dim=1).double()
+                                             / n).tolist()
+                print(f"  [{out['device']}] K5 {label} {mode} ({n} rays, "
+                      f"{row['hits_new']} {'blocked' if shadow else 'hit'}): "
+                      f"new == old on every lane {same}; ms old / new / new "
+                      f"/ old {_fmt(row['turns_old_new'])}; box / prim "
+                      f"tests per ray old {row['tally old']}, new "
+                      f"{row['tally new']} (clocks before "
+                      f"{row['clocks'][0]}; after {row['clocks'][1]})")
+                out["k5"][f"{label} {mode}"] = row
     out["clocks_end"] = clocks()
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
-    ok = (all(r["new_equals_old"] for k in ("k1", "k2", "k3")
+    ok = (all(r["new_equals_old"] for k in ("k1", "k2", "k3", "k5")
               for r in out.get(k, {}).values())
           and all(r["equal"] for r in out.get("k4", {}).values()))
     print("kernel_ab: " + ("every kernel equals its predecessor" if ok
@@ -727,6 +787,91 @@ def _k3_runs(compiled, arrays, grp, g, dev, old_k3, stream, err_lib):
     print(f"  K3 mesh plan: {plan.n_blocks} blocks of {MSH.BP}, at most "
           f"{MSH.BLOCK_LEAF_MAX} per leaf, {plan.n_nodes} nodes, depth "
           f"{plan.depth}; the old skip-link tree {sp.n_nodes} nodes")
+    return {"old": old, "new": new}
+
+
+def skip_link_tables(bvh, device):
+    """(nf (M * 6,) float32, ni (M * 3,) int32 [skip, leaf start, count])
+    of a skip-link tree on `device`: K5's tables before the child-pair
+    records."""
+    nf = np.concatenate([bvh.bmin, bvh.bmax], axis=1).astype(np.float32)
+    ni = np.stack([bvh.skip, bvh.leaf_start, bvh.leaf_count],
+                  axis=1).astype(np.int32)
+    return (torch.as_tensor(nf.reshape(-1), device=device),
+            torch.as_tensor(ni.reshape(-1), device=device))
+
+
+def _k5_cases(compiled, arrays, q0, dev):
+    """[(label, scene, device arrays, group, [(mode, rays, seed)])]: K5's
+    comparison cases -- each lattice group of TestScene with the L0 batch
+    q0 and its first shadow batch, then the sphere cloud and the
+    coincident chain with K5_RAYS block_rays, intersect and shadow."""
+    from ..compile import compile_scene, to_torch
+    from ..config import INFINITY
+    from ..scenes.phasescene import (block_rays, coincident_scene,
+                                     phase_kinds_lights, sphere_cloud_scene)
+    sh = l0_shadow(compiled, arrays, q0)
+    ts = [(mode, rays, rays[6].contiguous())
+          for mode, rays in (("intersect", q0), ("shadow", sh))]
+    sc = compiled.scenes[0]
+    cases = [(f"TestScene 0.g{gi} ({g.size} {g.ptype}"
+              f"{', constrained' if g.constraints else ''}) L0", sc,
+              arrays["scenes"][0], gi, ts)
+             for gi, g in enumerate(sc.groups) if g.accel_eligible]
+    for label, solid, span, min_size in (
+            ("sphere cloud (20,000 spheres)", sphere_cloud_scene(), 14.0,
+             None),
+            ("coincident chain (1,000 spheres)", coincident_scene(), 6.0,
+             64)):
+        kw = {} if min_size is None else {"accel_min_size": min_size}
+        cc = compile_scene(solid, phase_kinds_lights(), **kw)
+        o, d = block_rays(K5_RAYS, 4, span)
+        batches = []
+        for mode, seed_t in (("intersect", INFINITY), ("shadow", 7.0)):
+            rays = torch.as_tensor(np.stack(
+                [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                 np.full(K5_RAYS, seed_t, np.float32),
+                 np.zeros(K5_RAYS, np.float32)]), device=dev).contiguous()
+            batches.append((mode, rays, rays[6].contiguous()))
+        cases.append((label, cc.scenes[0],
+                      to_torch(cc.arrays(), dev)["scenes"][0], 0, batches))
+    return cases
+
+
+def _k5_runs(old_k5, design, args, dev, stream, err_lib):
+    """{"old", "new"}: K5 on one group's inputs args = (ptype, bvh, rows,
+    vis, cons) (intersect.bvh_args) as fn(rays, seed, shadow, tally=None)
+    -> (t, leaf-order winner).  The old kernel walks the skip-link tables
+    (skip_link_tables) or, for a records design, this checkout's
+    records."""
+    ptype, bvh, rows, vis, cons = args
+    if design == "skip links":
+        nf, ni = skip_link_tables(bvh, dev)
+
+        def tree():
+            return nf.data_ptr(), ni.data_ptr(), bvh.n_nodes
+    else:
+        recs = GK.bvh_records(bvh, dev)
+
+        def tree():
+            return (recs.nodes.data_ptr(), recs.n_nodes,
+                    kernels.walk_stack(recs.depth))
+
+    def old(rays, seed, shadow, tally=None):
+        n = rays.shape[1]
+        t = torch.empty(n, dtype=torch.float32, device=dev)
+        leaf = torch.empty(n, dtype=torch.int32, device=dev)
+        err = old_k5(rays.data_ptr(), n, seed.data_ptr(), *tree(),
+                     rows.data_ptr(), vis.data_ptr(), rows.shape[1],
+                     MK.PTYPE_CODE[ptype], cons.cf.data_ptr(),
+                     cons.desc.data_ptr(), int(shadow), t.data_ptr(),
+                     leaf.data_ptr(), kernels.tally_ptr(tally), stream())
+        kernels.check_launch(err_lib, err, "old bvh_select")
+        return t, leaf
+
+    def new(rays, seed, shadow, tally=None):
+        return GK.bvh_select(ptype, bvh, rows, vis, cons, rays, seed,
+                             shadow, tally=tally)
     return {"old": old, "new": new}
 
 

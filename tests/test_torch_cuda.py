@@ -462,6 +462,43 @@ def test_bvh_kernel_matches_plain(dev, constrained, shadow):
     _assert_kernel_equals_plain(k, p, shadow)
 
 
+@pytest.mark.parametrize("case", ["coincident", "tie_grid"])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_bvh_kernel_breaks_ties_by_row(dev, case, shadow):
+    """K5 on exact ties: 1,000 coincident spheres (a skip-link chain 250
+    leaves long, walked as a balanced tree at most 12 deep; every hit
+    ties all rows) and the tie grid's 512 flat triangles as one K5
+    group.  K5 equals its plain version on every lane, winners
+    included: the lowest leaf-order row at the least t."""
+    from glome_tpu_torch import group_kernels as GK
+    from glome_tpu_torch import intersect as TI
+    from glome_tpu_torch.compile import materialize_scene_params
+    from glome_tpu_torch.scenes.phasescene import coincident_scene
+    solid = coincident_scene() if case == "coincident" else tie_grid_scene()
+    compiled = T.compile_scene(solid, phase_kinds_lights(), accel_min_size=64)
+    sc = compiled.scenes[0]
+    garrs = materialize_scene_params(
+        sc, T.to_torch(compiled.arrays(), dev)["scenes"][0])
+    args, _order = TI.bvh_args(sc, garrs, 0, shadow, dev)
+    if case == "coincident":
+        assert GK.bvh_records(args[1], dev).depth <= 12
+        rays, seed = _block_rays(dev, 8192, 7.0 if shadow else T.INFINITY,
+                                 5 if shadow else 4, 6.0)
+    else:
+        o, d = tie_grid_rays(8192, seed=2)
+        rays, seed = _rays_of(dev, o, d, 5.0 if shadow else T.INFINITY)
+    k = GK.bvh_select(*args, rays, seed, shadow)
+    p = GK.bvh_select_plain(*args, rays, seed, shadow)
+    _assert_kernel_equals_plain(k, p, shadow)
+    if not shadow:
+        rows = args[2]
+        t0, t1 = MK._candidates(args[0], rows, rows.shape[1], False,
+                                rays[0:3].t(), rays[3:6].t())
+        at_t = ((t0 == p[0][:, None]) | (t1 == p[0][:, None])) & (
+            args[3] > 0.5)
+        assert int((at_t.sum(dim=1) > 1).sum()) > 1000
+
+
 def test_group_wrappers_reject_bad_inputs(dev):
     from glome_tpu_torch import group_kernels as GK
     sc, gi, garrs = _dense_case(dev, "transformed")

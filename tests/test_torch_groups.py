@@ -10,6 +10,11 @@ glome_tpu's, on the CPU.
     version's candidates: no box culls a candidate;
   - K2's block trees of block_scene as the child-pair records that K1,
     K2 and K3 share (accel.node_records);
+  - K5's records: each group's skip-link tree converted to a binary tree
+    (accel.skip_link_pairs) keeps its leaves, rows and boxes, a chain of
+    unsplittable leaves becomes a shallow subtree, and the kernel's leaf
+    rule (the least (t, row)) on a walk of the records, emulated here,
+    gives bvh_select_plain's winner on exact ties;
   - TestScene 90x60 depth 3 through WavefrontTracer(route=GROUPS)
     against glome_tpu's CPU golden of the frame.
 
@@ -33,19 +38,24 @@ import glome_tpu as G
 import glome_tpu_torch as T
 from glome_tpu import pallas_kernels as PK
 from glome_tpu.scenes import test_scene as jax_test_scene
+from glome_tpu_torch import accel as A
 from glome_tpu_torch import block_kernel as BK
 from glome_tpu_torch import group_kernels as GK
 from glome_tpu_torch import intersect as TI
+from glome_tpu_torch import kernels
 from glome_tpu_torch import megakernel as TMK
-from glome_tpu_torch.compile import group_accel
+from glome_tpu_torch.compile import group_accel, materialize_scene_params
 from glome_tpu_torch.io import quantize, read_png
 from glome_tpu_torch.megakernel import _field_width
 from glome_tpu_torch.render import pixel_coords, primary_rays
 from glome_tpu_torch.scenes import test_scene as torch_test_scene
 from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
+                                               coincident_scene,
                                                phase_kinds_lights,
                                                phase_kinds_rays,
-                                               phase_kinds_scene)
+                                               phase_kinds_scene,
+                                               sphere_cloud_scene,
+                                               tie_grid_rays, tie_grid_scene)
 from test_torch_mega import walk_pair_records
 from test_torch_mesh import block_tree_rows
 
@@ -143,6 +153,237 @@ def test_block_scene_trees_as_child_pair_records(kind):
                                       == (kind == "transformed"))
         n_trees += 1
     assert n_trees >= 1
+
+
+# --- K5's child-pair records of the skip-link trees -------------------------
+
+def _k5_group(testscene_pair, case):
+    """(compiled scene, group index in its scene 0) of a K5 case: TestScene's
+    lattice groups ("lattice0", "lattice1"), block_scene's 700 spheres,
+    the 20,000-sphere cloud, the 1,000 coincident spheres or the tie
+    grid's 512 triangles."""
+    if case.startswith("lattice"):
+        ct = testscene_pair[1]
+        groups = [gi for gi, g in enumerate(ct.scenes[0].groups)
+                  if g.accel_eligible]
+        assert len(groups) == 2
+        return ct, groups[int(case[-1])]
+    solid = {"block_scene": lambda: block_scene("spheres"),
+             "sphere_cloud": sphere_cloud_scene,
+             "coincident": coincident_scene,
+             "tie_grid": tie_grid_scene}[case]()
+    cc = T.compile_scene(solid, phase_kinds_lights(), accel_min_size=64)
+    return cc, 0
+
+
+def _chain_links(bvh):
+    """Nodes of a skip-link tree that are both a leaf and a parent."""
+    return int(((bvh.leaf_count > 0)
+                & (bvh.skip != np.arange(bvh.n_nodes) + 1)).sum())
+
+
+def _assert_pairs_keep_the_tree(bvh, pairs, bmin, bmax):
+    """skip_link_pairs' tree against the skip-link tree it came from (and
+    the group's prim bounds bmin / bmax in local order): its records
+    walk back every node, box and leaf range; its leaves are the
+    skip-link leaves, the same rows in leaf order; every leaf box holds
+    its rows' bounds and every inner box its children's boxes."""
+    recs = A.node_records(pairs.bmin, pairs.bmax, pairs.left, pairs.right,
+                          pairs.leaf_start, pairs.leaf_count)
+    box = np.concatenate([pairs.bmin, pairs.bmax], axis=1)
+    reached, depth = walk_pair_records(recs, box, pairs.left, pairs.right,
+                                       pairs.leaf_start, pairs.leaf_count)
+    assert (reached, depth) == (pairs.n_nodes, pairs.depth)
+    np.testing.assert_array_equal(pairs.order, bvh.order)
+    leaf = pairs.leaf_count > 0
+    got = sorted(zip(pairs.leaf_start[leaf].tolist(),
+                     pairs.leaf_count[leaf].tolist()))
+    sl = bvh.leaf_count > 0
+    want = list(zip(bvh.leaf_start[sl].tolist(), bvh.leaf_count[sl].tolist()))
+    assert got == want
+    starts, counts = np.asarray(got).T
+    np.testing.assert_array_equal(starts, np.cumsum(counts) - counts)
+    assert counts.sum() == len(bvh.order)
+    assert counts.max() <= A.LEAF_MAX
+    order = np.asarray(bvh.order)
+    lo = bmin[order].astype(np.float32)
+    hi = bmax[order].astype(np.float32)
+    for n in range(pairs.n_nodes):
+        if leaf[n]:
+            rows = slice(pairs.leaf_start[n],
+                         pairs.leaf_start[n] + pairs.leaf_count[n])
+            assert (pairs.bmin[n] <= lo[rows]).all()
+            assert (pairs.bmax[n] >= hi[rows]).all()
+        else:
+            kids = [pairs.left[n], pairs.right[n]]
+            assert (pairs.bmin[n] <= pairs.bmin[kids]).all()
+            assert (pairs.bmax[n] >= pairs.bmax[kids]).all()
+
+
+@pytest.mark.parametrize("case", ["lattice0", "lattice1", "block_scene",
+                                  "sphere_cloud"])
+def test_skip_link_trees_as_child_pair_records(testscene_pair, case):
+    """Trees without a chain convert node for node (TestScene's lattice
+    groups: 2,345 and 2,543 nodes, depth 13 and 19), keeping every leaf,
+    row and box."""
+    cc, gi = _k5_group(testscene_pair, case)
+    g = cc.scenes[0].groups[gi]
+    bvh = group_accel(g)
+    pairs = A.skip_link_pairs(bvh)
+    assert _chain_links(bvh) == 0
+    assert pairs.n_nodes == bvh.n_nodes
+    _assert_pairs_keep_the_tree(bvh, pairs, *A.group_bounds(g))
+    if case.startswith("lattice"):
+        assert (pairs.n_nodes, pairs.depth) in ((2345, 13), (2543, 19))
+    kernels.walk_stack(pairs.depth)
+
+
+def test_coincident_chain_converts_shallow(testscene_pair):
+    """1,000 coincident spheres: build_bvh can split none of them, so its
+    tree is a chain of 250 four-row leaves, 250 deep read as a binary
+    tree, beyond the walk stack's 227 levels; converted, it is a
+    balanced tree of the same 250 leaves at most 12 deep."""
+    cc, gi = _k5_group(testscene_pair, "coincident")
+    g = cc.scenes[0].groups[gi]
+    bvh = group_accel(g)
+    assert (bvh.n_nodes, _chain_links(bvh)) == (250, 249)
+    with pytest.raises(ValueError):
+        kernels.walk_stack(bvh.n_nodes)
+    pairs = A.skip_link_pairs(bvh)
+    _assert_pairs_keep_the_tree(bvh, pairs, *A.group_bounds(g))
+    assert int((pairs.leaf_count > 0).sum()) == 250
+    assert pairs.depth <= 12
+    kernels.walk_stack(pairs.depth)
+
+
+def test_chain_ending_in_a_subtree_converts():
+    """A chain whose last link goes on into an inner node: node 0 holds
+    rows 0-3 and its rest is node 1, an inner node over the leaves 2
+    (rows 4-5) and 3 (rows 6-7).  The converted root's children are the
+    link's own rows, under the link's box, and node 1's subtree."""
+    box = np.float32([[0, 0, 0, 4, 4, 4], [1, 1, 1, 3, 3, 3],
+                      [1, 1, 1, 2, 2, 2], [2, 2, 2, 3, 3, 3]])
+    bvh = A.BvhFlat(bmin=box[:, :3], bmax=box[:, 3:],
+                    leaf_start=np.int32([0, -1, 4, 6]),
+                    leaf_count=np.int32([4, 0, 2, 2]),
+                    skip=np.int32([4, 4, 3, 4]),
+                    order=np.arange(8, dtype=np.int32))
+    pairs = A.skip_link_pairs(bvh)
+    assert (pairs.n_nodes, pairs.depth) == (5, 3)
+    lo = np.float32([[0, 0, 0]] * 4 + [[1, 1, 1]] * 2 + [[2, 2, 2]] * 2)
+    _assert_pairs_keep_the_tree(bvh, pairs, lo, lo + 1)
+    left, right = pairs.left[0], pairs.right[0]
+    assert (pairs.leaf_start[left], pairs.leaf_count[left]) == (0, 4)
+    np.testing.assert_array_equal(pairs.bmax[left], [4, 4, 4])
+    np.testing.assert_array_equal(pairs.bmin[right], [1, 1, 1])
+    assert pairs.leaf_count[right] == 0
+
+
+def _emulate_k5(recs, t0, t1, vis, seed, o, d, shadow, far_first=False):
+    """csrc/bvh_select.cu's walk of one ray in numpy: the near-first walk
+    of csrc/bvh_walk.cuh over child-pair records (far_first: the other
+    child first) with the kernel's leaf rule -- a row's candidate beats
+    the best (bt, best row) when it is nearer, or as near with a lower
+    row -- on the row candidates t0 / t1 of this ray.  Returns (t, leaf
+    row or -1)."""
+    words = recs.view(np.int32)
+    with np.errstate(divide="ignore"):
+        inv = np.float32(1.0) / np.where(d == 0, np.float32(1e-20), d)
+
+    def reach(b, lim):
+        ta, tb = (b[0:3] - o) * inv, (b[3:6] - o) * inv
+        near = np.max(np.minimum(ta, tb))
+        far = np.min(np.maximum(ta, tb))
+        return near <= far and far > 0 and near <= lim, near
+
+    def beats(t, row, bt, best):
+        return t < bt or (t == bt and best >= 0 and row < best)
+
+    bt, best, stack = seed, -1, []
+    if not seed > 0:
+        return bt, -1
+    node = int(words[0, 12]) if reach(recs[0, 0:6], bt)[0] else 0
+    while node != 0:
+        if node < 0:
+            first, count = (~node) >> 5, (~node) & 31
+            for row in range(first, first + count):
+                if not vis[row] > 0.5:
+                    continue
+                v0 = t0[row] > 0 and beats(t0[row], row, bt, best)
+                v1 = t1[row] > 0 and beats(t1[row], row, bt, best)
+                if v0 or v1:
+                    bt, best = (t0[row] if v0 else t1[row]), row
+                    if shadow:
+                        return bt, best
+            node = 0
+        else:
+            hl, nl = reach(recs[node, 0:6], bt)
+            hr, nr = reach(recs[node, 6:12], bt)
+            kids = (int(words[node, 12]), int(words[node, 13]))
+            if hl and hr:
+                first_l = (nl <= nr) != far_first
+                node = kids[0] if first_l else kids[1]
+                stack.append((kids[1], nr) if first_l else (kids[0], nl))
+            else:
+                node = kids[0] if hl else (kids[1] if hr else 0)
+        while node == 0 and stack:
+            ref, near = stack.pop()
+            if near <= bt:
+                node = ref
+    return bt, (best if bt < seed else -1)
+
+
+@pytest.mark.parametrize("case", ["tie_grid", "coincident"])
+@pytest.mark.parametrize("shadow", [False, True])
+def test_record_walk_breaks_ties_as_the_plain_version(testscene_pair, case,
+                                                      shadow):
+    """On exact ties (the tie grid's vertical rays meet up to six rows at
+    bit-exactly the same t, and a ray into the coincident spheres meets
+    all 1,000), K5's leaf rule on its walk of the records, near child
+    first or far child first, picks bvh_select_plain's winner on every
+    lane: the lowest leaf-order row at the least t; in shadow mode the
+    same rays are blocked."""
+    cc, gi = _k5_group(testscene_pair, case)
+    sc = cc.scenes[0]
+    garrs = materialize_scene_params(
+        sc, T.to_torch(cc.arrays(), "cpu")["scenes"][0])
+    (ptype, bvh, rows, vis, cons), _order = TI.bvh_args(sc, garrs, gi,
+                                                        shadow, "cpu")
+    n = 192
+    if case == "tie_grid":
+        o, d = tie_grid_rays(n, seed=2)
+        seed_t = 5.0 if shadow else INF
+    else:
+        o, d = block_rays(n, 3)
+        seed_t = 7.0 if shadow else INF
+    o, d = o.astype(np.float32), d.astype(np.float32)
+    seeds = np.full(n, seed_t, np.float32)
+    seeds[::17] = 0.0
+    tp, lp = GK.bvh_select_plain(ptype, bvh, rows, vis, cons,
+                                 torch.as_tensor(np.concatenate(
+                                     [o.T, d.T, seeds[None]])).contiguous(),
+                                 torch.as_tensor(seeds), shadow)
+    c0, c1 = TMK._candidates(ptype, rows, _field_width(ptype), False,
+                             torch.as_tensor(o), torch.as_tensor(d))
+    c0, c1 = c0.numpy(), c1.numpy()
+    pairs = A.skip_link_pairs(bvh)
+    recs = A.node_records(pairs.bmin, pairs.bmax, pairs.left, pairs.right,
+                          pairs.leaf_start, pairs.leaf_count)
+    vis = vis.numpy()
+    ties = 0
+    for far_first in (False, True):
+        for i in range(n):
+            t, leaf = _emulate_k5(recs, c0[i], c1[i], vis, seeds[i], o[i],
+                                  d[i], shadow, far_first)
+            assert (leaf >= 0) == (int(lp[i]) >= 0), i
+            if not shadow:
+                assert (t, leaf) == (float(tp[i]), int(lp[i])), i
+                if not far_first and leaf >= 0:
+                    at_t = (c0[i] == t) | (c1[i] == t)
+                    ties += int((at_t & (vis > 0.5)).sum() > 1)
+    assert 0 < int((lp >= 0).sum()) < n
+    if not shadow:
+        assert ties > n // 8
 
 
 # --- K4 / K5 plain versions against the Pallas kernels ---------------------

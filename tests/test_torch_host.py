@@ -172,3 +172,19 @@ def test_port_sources_name_no_jax():
                         continue
                     mod = words[1].split(".")[0].rstrip(",")
                     assert mod not in ("jax", "glome_tpu"), (f, line)
+
+
+def test_kernel_build_key_follows_nvcc_version():
+    """A library's name hashes its sources, the nvcc flags and nvcc's
+    --version text: another toolkit builds another library instead of
+    loading one built by the first."""
+    from glome_tpu_torch import kernels
+    v1 = "Cuda compilation tools, release 12.4, V12.4.131"
+    v2 = "Cuda compilation tools, release 12.8, V12.8.93"
+    for sources in kernels.LIBRARIES.values():
+        key = kernels.build_key(sources, v1)
+        assert key == kernels.build_key(sources, v1)
+        assert key != kernels.build_key(sources, v2)
+    keys = {kernels.build_key(s, v1) for s in kernels.LIBRARIES.values()}
+    assert len(keys) == len(kernels.LIBRARIES)
+    assert "bvh_walk.cuh" in kernels.BVH_SOURCES
