@@ -2,7 +2,9 @@
 """Smoke test of glome_tpu_torch on one CUDA GPU.
 
 Drives the port's main paths through the entry points a user calls
-(compile_scene -> to_torch -> WavefrontTracer -> Renderer.render) with
+(compile_scene -> to_torch -> WavefrontTracer or Tracer ->
+Renderer.render or AARenderer.render; SoftTracer + optimize for
+BASELINE config 5) with
 the hand-written CUDA kernels K1 (csrc/mega_select.cu), K2
 (csrc/block_select.cu) and K3 (csrc/mesh_block_select.cu) on the
 megakernel route, and K4 (csrc/dense_select.cu) and K5
@@ -62,7 +64,8 @@ micro_kwide), and checks them in phases:
      K1 also counts its clause work, point-in-node tests and member
      inside tests) over 67 TFLOP/s; and the tallies of each mesh through
      the other kernel: K3's box + triangle tests per ray are at most 1.1x
-     K2's on the same rays;
+     K2's on the same rays; K4 is also timed and bounded on one of
+     TestScene's one-prim groups ("one_prim_*" in its entry);
  12. K4 against dense_select_plain on the card: K4 launched on every
      dense group of TestScene with all 345,600 L0 rays and all their
      shadow rays, held against the plain version on the whole batch; and
@@ -99,7 +102,34 @@ micro_kwide), and checks them in phases:
      variant's bound from the sphere tests its tiles made;
  18. M2 likewise through micro_kwide.main(): the K-wide walk at K = 1, 2,
      4, 8, 16 (visited nodes per tile, exactly the plain version's) and
-     the scratch reads at NREAD = 16, 64.
+     the scratch reads at NREAD = 16, 64;
+ 19. TestScene 720x480 depth 3 through the recursive Tracer
+     (glome_tpu_torch/trace.py) on K1: one K1 launch per intersect or
+     shadow batch (Tracer.last_batches), no other kernel, no plain call,
+     within the canaries of out/testscene_tpu.png and of phase 4's
+     wavefront frame; frame ms (CUDA events, mean of 3 after a warm-up);
+ 20. phasescene.warp_lights_scene, a portal whose target scene has its
+     own two lights (the wavefront tracer refuses it), 320x240 depth 3
+     through Tracer on the kernels against the plain set, under the
+     canaries;
+ 21. the adaptive-AA frame of TestScene at 720x480 (AARenderer over the
+     WavefrontTracer): per-pass ray counts, pass 1 exactly 1/8 of the
+     tile-padded frame, at most 2 rays/px, zero overflow, a finite image,
+     K1 launches and no plain call, ms per frame (CUDA events, mean of 3
+     after a warm-up); and a 180x120 AA frame through the kernels against
+     the plain set under the canaries;
+ 22. BASELINE config 5 at 180x120 through
+     glome_tpu_torch/tools/config5_e2e.py's functions: the AA target,
+     three Adam steps of the 8x-pooled soft loss with a checkpoint at
+     step 2 and at the end, then a resumed run that continues from step
+     3 (K1 launches of that one step; no plain call); finite losses, ms
+     per step and peak memory; the perturbed row's gradient after
+     only_group finite and nonzero on its center and radius and zero on
+     every other leaf, and within 1e-3 of the largest |g| of the same
+     gradient through the plain set; the forward + backward with and
+     without the soft pass and K1's device time in a profiled step; the
+     first loss printed beside the TPU reference's losses[0]
+     (out/config5/config5_result.json), not gated.
 
 Kernel against plain: K2, K3 and K5 equal their plain versions on
 every lane (hit or blocked, t bit for bit, and the winner: each takes
@@ -259,6 +289,7 @@ def main():
                                          materialize_scene_params)
     from glome_tpu_torch.io import quantize, read_png, write_png
     from glome_tpu_torch.scenes import mesh_scene, test_scene
+    from glome_tpu_torch.tools import config5_e2e as C5
     from glome_tpu_torch.tools import kernel_ab as KAB
     from glome_tpu_torch.tools import micro_kwide as MKW
     from glome_tpu_torch.tools import micro_prims as MPR
@@ -273,7 +304,8 @@ def main():
                                                    phase_kinds_scene,
                                                    sphere_cloud_scene,
                                                    tie_grid_rays,
-                                                   tie_grid_scene)
+                                                   tie_grid_scene,
+                                                   warp_lights_scene)
     from glome_tpu_torch.trace import _light_arrays
     from glome_tpu_torch.trace_wavefront import shadow_rays
 
@@ -1016,9 +1048,11 @@ def main():
                      key=lambda gi: compiled.scenes[0].groups[gi].size)
 
     # -- 11. bounds ----------------------------------------------------------
-    def bound(name, rays_bytes, out_bytes, table_bytes, tally, prim_flops):
+    def bound(name, rays_bytes, out_bytes, table_bytes, tally, prim_flops,
+              prefix=""):
         """The kernel's bound from its tally: box and prim tests, and for
-        K1 (four rows) its point-in-node and member inside tests."""
+        K1 (four rows) its point-in-node and member inside tests; stored
+        as the entry's `prefix`bound_ms / `prefix`bound_by."""
         n_box = int(tally[0].sum())
         n_prim = int(tally[1].sum())
         nbytes = rays_bytes + out_bytes + table_bytes
@@ -1034,15 +1068,18 @@ def main():
         t_bytes = nbytes / HBM_BPS * 1e3
         t_ops = flops / F32_FLOPS * 1e3
         e = entries[name]
-        e["bound_ms"] = max(t_bytes, t_ops)
-        e["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"  {name}: {n} rays, {n_box} box tests "
+        e[prefix + "bound_ms"] = max(t_bytes, t_ops)
+        e[prefix + "bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"  {name}{' ' + prefix[:-1] if prefix else ''}: {n} rays, "
+              f"{n_box} box tests "
               f"({n_box / n:.2f}/ray), {n_prim} prim tests "
               f"({n_prim / n:.2f}/ray){clause}; {nbytes / 1e6:.3f} MB -> "
               f"{1e3 * t_bytes:.2f} us, {flops / 1e9:.3f} GFLOP -> "
-              f"{1e3 * t_ops:.2f} us; bound {1e3 * e['bound_ms']:.2f} us "
-              f"({e['bound_by']})"
-              + (f", measured {1e3 * e['ms']:.2f} us" if "ms" in e else ""))
+              f"{1e3 * t_ops:.2f} us; bound "
+              f"{1e3 * e[prefix + 'bound_ms']:.2f} us "
+              f"({e[prefix + 'bound_by']})"
+              + (f", measured {1e3 * e[prefix + 'ms']:.2f} us"
+                 if prefix + "ms" in e else ""))
 
     def p_bounds():
         def tally_for(n, rows=2):
@@ -1119,6 +1156,31 @@ def main():
             bound(name, 28 * n, 8 * n,
                   sum(t.numel() * t.element_size() for t in tabs),
                   tally.cpu(), MIN_PRIM_FLOPS)
+        # K4 on a one-prim group (TestScene has four), timed and bounded
+        # on the same L0 batch
+        one_gi = next(gi for si, gi, kind in groups_ts
+                      if si == 0 and kind == "dense"
+                      and compiled.scenes[0].groups[gi].size == 1)
+        fn, _plain, args, kw = group_args(compiled, arrays, 0, one_gi,
+                                          "dense", False)
+        seed = Q0[6].contiguous()
+        e = entries["dense_select"]
+        e["one_prim_group"] = group_label(compiled, 0, one_gi)
+        # tools.device_time: a wrapper call issues slower than this
+        # launch runs, so CUDA events would time the host
+        e["one_prim_ms"] = device_time(
+            lambda: fn(*args, Q0, seed, **kw)) * 1e3
+        tally = tally_for(Q0.shape[1])
+        fn(*args, Q0, seed, tally=tally, **kw)
+        tabs = [a for a in list(args) + list(kw.values())
+                if torch.is_tensor(a)] + [args[-1].cf, args[-1].desc]
+        bound("dense_select", 28 * Q0.shape[1], 8 * Q0.shape[1],
+              sum(t.numel() * t.element_size() for t in tabs), tally.cpu(),
+              MIN_PRIM_FLOPS, prefix="one_prim_")
+        print(f"  [{smi_line}] dense_select on {e['one_prim_group']}: "
+              f"{e['one_prim_ms']:.4f} ms/launch (tools.device_time), "
+              f"bound {e['one_prim_bound_ms']:.5f} ms "
+              f"({e['one_prim_bound_by']})")
         return ok
     phase("11 bounds", p_bounds)
 
@@ -1482,6 +1544,230 @@ def main():
           lambda: p_micro("micro_prims", "micro_prims_T256"))
     phase("18 M2 micro_kwide on the card",
           lambda: p_micro("micro_kwide", "micro_kwide_T256"))
+
+    # -- 19. TestScene through the recursive Tracer ------------------------
+    def p_tracer_frame():
+        tracer = T.Tracer(compiled, cfg)
+        renderer = T.Renderer(tracer, cam, cfg)
+        reset_counts()
+        rgb, depth = renderer.render(arrays)
+        counts = read_counts("testscene_720x480_tracer")
+        img = rgb.cpu().numpy()
+        finite = bool(np.isfinite(img).all()
+                      and torch.isfinite(depth).all().item())
+        print(f"  rgb {tuple(img.shape)} finite {finite}, "
+              f"{tracer.last_batches} intersect and shadow batches "
+              f"(expected K1 launches)")
+        write_png(os.path.join(out_dir, "testscene_720x480_tracer_gpu.png"),
+                  img)
+        ok = canaries_ok("vs out/testscene_tpu.png", quantize(img),
+                         read_png(os.path.join(ROOT, "out",
+                                               "testscene_tpu.png")))
+        if "mega" in frame_imgs:
+            ok &= canaries_ok("vs phase 4's wavefront frame", quantize(img),
+                              frame_imgs["mega"])
+        else:
+            ok = False
+        frame_ms = cuda_ms(lambda: renderer.render(arrays), 3)
+        entries["mega_select"]["tracer_frame_ms"] = frame_ms
+        print(f"  [{smi_line}] 720x480 depth-3 frame through Tracer: "
+              f"{frame_ms:.3f} ms (CUDA events, mean of 3 after warm-up), "
+              f"{n_px / frame_ms / 1e3:.4f} primary Mrays/s")
+        return (ok and finite and img.shape == (cfg.yres, cfg.xres, 3)
+                and counts["mega_select"] == tracer.last_batches
+                and all(counts[k] == 0 for k in kernel_fns
+                        if k != "mega_select")
+                and counts["plain"] == 0)
+    phase("19 TestScene frame 720x480 depth 3 through the recursive Tracer",
+          p_tracer_frame)
+
+    # -- 20. a portal with its own light set --------------------------------
+    def p_warp_lights():
+        ws, wl, wcam = warp_lights_scene()
+        wc = T.compile_scene(ws, wl)
+        wa = T.to_torch(wc.arrays(), dev)
+        wcfg = T.RenderConfig(xres=320, yres=240, maxdepth=3)
+        own_lights = tuple(wc.warp_mats[0].lights) != tuple(wc.lights)
+        tracer = T.Tracer(wc, wcfg)
+        reset_counts()
+        rk, _ = T.Renderer(tracer, wcam, wcfg).render(wa)
+        counts = read_counts("warp_lights_320x240_tracer")
+        rp, _ = T.Renderer(T.Tracer(wc, wcfg, select=MK.PLAIN), wcam,
+                           wcfg).render(wa)
+        gk, gp = quantize(rk.cpu().numpy()), quantize(rp.cpu().numpy())
+        same = float((gk == gp).all(axis=-1).mean())
+        print(f"  {tracer.last_batches} batches; kernel and plain frames "
+              f"equal on {100 * same:.4f}% of pixels")
+        ok = canaries_ok("kernels vs plain set 320x240", gk, gp)
+        return (ok and own_lights
+                and counts["mega_select"] == tracer.last_batches > 2
+                and counts["plain"] == 0)
+    phase("20 portal with its own light set through the recursive Tracer",
+          p_warp_lights)
+
+    # -- 21. adaptive AA ----------------------------------------------------
+    def p_aa():
+        aa = T.AARenderer(T.WavefrontTracer(compiled, cfg), cam, cfg)
+        reset_counts()
+        rgb, depth = aa.render(arrays)
+        counts = read_counts("aa_testscene_720x480")
+        rc = aa.last_ray_counts
+        S = cfg.blocksize
+        yy, xx = np.mgrid[0:-(-cfg.yres // S) * S, 0:-(-cfg.xres // S) * S]
+        n_pad = xx.size
+        # pass 1's pixels: every 4th of the even grid, 1/8 of a frame whose
+        # sides are multiples of 4 (720x480 pads to 780x520)
+        pass1 = int(((xx % 2 == 0) & (yy % 2 == 0)
+                     & ((xx + yy) % 4 == 0)).sum())
+        total = sum(rc.values())
+        rays_px = total / n_px
+        img = rgb.cpu().numpy()
+        finite = bool(np.isfinite(img).all())
+        overflow = sum(aa.last_overflow.values())
+        print(f"  ray counts {rc}: {total} rays, {rays_px:.4f} rays/px "
+              f"(padded frame {n_pad} px, pass 1 = {pass1} expected, "
+              f"{pass1 / n_pad:.4f} of it), "
+              f"overflow {overflow}, finite {finite}")
+        write_png(os.path.join(out_dir, "aa_720x480_gpu.png"), img)
+        frame_ms = cuda_ms(lambda: aa.render(arrays), 3)
+        entries["mega_select"]["aa_frame_ms"] = frame_ms
+        entries["mega_select"]["aa_rays_per_px"] = rays_px
+        print(f"  [{smi_line}] AA 720x480 frame: {frame_ms:.3f} ms (CUDA "
+              f"events, mean of 3 after warm-up), {rays_px:.4f} rays/px, "
+              f"{total / frame_ms / 1e3:.4f} Mrays/s")
+        ok = (rc["pass1"] == pass1 and rays_px <= 2.0 and finite
+              and overflow == 0 and counts["mega_select"] > 0
+              and counts["plain"] == 0
+              and all(counts[k] == 0 for k in kernel_fns
+                      if k != "mega_select"))
+        small = T.RenderConfig.tuned(xres=180, yres=120)
+        ak = T.AARenderer(T.WavefrontTracer(compiled, small), cam, small)
+        ap = T.AARenderer(T.WavefrontTracer(compiled, small,
+                                            select=MK.PLAIN), cam, small)
+        rk, _ = ak.render(arrays)
+        rp, _ = ap.render(arrays)
+        print(f"  180x120 ray counts: kernels {ak.last_ray_counts}, plain "
+              f"set {ap.last_ray_counts}")
+        ok &= canaries_ok("AA 180x120 kernels vs plain set",
+                          quantize(rk.cpu().numpy()),
+                          quantize(rp.cpu().numpy()))
+        return ok
+    phase("21 adaptive AA 720x480 through the kernels", p_aa)
+
+    # -- 22. BASELINE config 5 ----------------------------------------------
+    def p_config5():
+        from glome_tpu_torch.soft import SoftTracer
+        from glome_tpu_torch.optimize import optimize, tree_leaves, tree_map
+        c5, c5cfg, c5cam, c5tracer, c5true = C5.setup(180, 120, dev)
+        target, aa5 = C5.aa_target(c5tracer, c5cam, c5cfg, c5true)
+        o5, d5 = C5.pixel_rays(c5tracer, c5cam, c5cfg, dev)
+        pert = C5.perturb(c5true)
+        H, W = c5cfg.yres, c5cfg.xres
+        loss_fn = C5.coarse_to_fine_loss(SoftTracer(c5tracer), H, W)
+        ckpt = os.path.join(out_dir, "chip_smoke_config5")
+        if os.path.isdir(ckpt):
+            for name in os.listdir(ckpt):
+                os.remove(os.path.join(ckpt, name))
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+        def on_step(i, loss):
+            stamps.append(time.perf_counter())
+            print(f"  step {i}: loss {loss:.6f}")
+        t0 = time.perf_counter()
+        run1 = optimize(c5tracer, pert, o5, d5, target, steps=3, lr=5e-3,
+                        checkpoint_dir=ckpt, checkpoint_every=2,
+                        loss_fn=loss_fn, grad_filter=C5.only_group(),
+                        on_step=on_step)
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps, stamps)]
+        saved = sorted(os.listdir(ckpt))
+        reset_counts()
+        run2 = optimize(c5tracer, pert, o5, d5, target, steps=4, lr=5e-3,
+                        checkpoint_dir=ckpt, checkpoint_every=2,
+                        loss_fn=loss_fn, grad_filter=C5.only_group(),
+                        on_step=on_step)
+        counts = read_counts("config5_180x120_step")
+        losses = run1.losses + run2.losses
+        ms_step = float(np.mean(steps_ms[1:]))
+        ref_path = os.path.join(ROOT, "out", "config5", "config5_result.json")
+        with open(ref_path) as f:
+            ref0 = json.load(f)["losses"][0]
+        print(f"  AA target: {sum(aa5.last_ray_counts.values()) / (H * W):.3f}"
+              f" rays/px; checkpoints {saved}; resumed run: "
+              f"{run2.steps_run} step(s) from step 3")
+        print(f"  [{smi_line}] config 5 180x120: {ms_step:.1f} ms per step "
+              f"(host wall between steps, each ending with the loss read "
+              f"back; mean of steps 2-3), first step {steps_ms[0]:.1f} ms, "
+              f"peak memory {peak / 2**30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated)")
+        print(f"  first loss {losses[0]:.10f}; the TPU reference's "
+              f"losses[0] (out/config5/config5_result.json): {ref0:.10f}")
+        entries["mega_select"].update(config5_ms_per_step=ms_step,
+                                      config5_peak_bytes=peak,
+                                      config5_first_loss=losses[0])
+        ok = (run1.steps_run == 3 and run2.steps_run == 1
+              and "step_00000002.pt" in saved and "step_00000003.pt" in saved
+              and all(np.isfinite(losses)) and counts["mega_select"] > 0
+              and counts["plain"] == 0
+              and all(counts[k] == 0 for k in kernel_fns
+                      if k != "mega_select"))
+
+        # the gradient of one loss at the perturbed scene, through the
+        # kernels and through the plain set, after only_group
+        def grads(tracer):
+            params = tree_map(lambda p: p.clone().requires_grad_(True), pert)
+            loss = C5.coarse_to_fine_loss(SoftTracer(tracer), H, W)(
+                params, o5, d5, target)
+            loss.backward()
+            return C5.only_group()(tree_map(
+                lambda p: (torch.zeros_like(p) if p.grad is None
+                           else p.grad), params))
+        gk = grads(c5tracer)
+        gp = grads(T.WavefrontTracer(c5, c5cfg, select=MK.PLAIN))
+        row = gk["scenes"][0][C5.GROUP]
+        kept = [row["center"][C5.ROW], row["radius"][C5.ROW:C5.ROW + 1]]
+        prow = gp["scenes"][0][C5.GROUP]
+        pkept = [prow["center"][C5.ROW], prow["radius"][C5.ROW:C5.ROW + 1]]
+        finite = all(bool(torch.isfinite(g).all()) for g in kept)
+        nonzero = all(bool((g != 0).any()) for g in kept)
+        others = sum(int((g != 0).sum()) for g in tree_leaves(gk)) - sum(
+            int((g != 0).sum()) for g in kept)
+        scale = max(float(g.abs().max()) for g in pkept)
+        diff = max(float((a - b).abs().max()) for a, b in zip(kept, pkept))
+        print(f"  gradient (kernels): center {kept[0].tolist()}, radius "
+              f"{kept[1].tolist()}; plain set: center {pkept[0].tolist()}, "
+              f"radius {pkept[1].tolist()}; max |diff| {diff:.3g} "
+              f"(<= 1e-3 x {scale:.4g}); finite {finite}, nonzero {nonzero}"
+              f", nonzero entries elsewhere {others}")
+        ok &= (finite and nonzero and others == 0
+               and diff <= 1e-3 * scale)
+
+        # where a step's time goes: the same forward + backward with the
+        # soft pass (tau 0.01) and without it (tau 0: the hard render),
+        # and K1's device time in one profiled soft step
+        def fwd_bwd(tau):
+            params = tree_map(lambda p: p.clone().requires_grad_(True), pert)
+            C5.coarse_to_fine_loss(SoftTracer(c5tracer, tau=tau), H, W)(
+                params, o5, d5, target).backward()
+        soft_ms = cuda_ms(lambda: fwd_bwd(1e-2), 3)
+        hard_ms = cuda_ms(lambda: fwd_bwd(0.0), 3)
+        wall, busy, per = profile_frame(lambda: fwd_bwd(1e-2),
+                                        ("mega_select_kernel",), top=8)
+        k1 = per["mega_select_kernel"] if per else float("nan")
+        print(f"  [{smi_line}] forward + backward: {soft_ms:.3f} ms with the "
+              f"soft pass, {hard_ms:.3f} ms without it (the soft pass "
+              f"{soft_ms - hard_ms:.3f} ms, "
+              f"{100 * (soft_ms - hard_ms) / soft_ms:.1f}% of the step); "
+              f"profiled: host wall {wall:.3f} ms, device busy "
+              + (f"{busy:.3f} ms, K1 {k1:.3f} ms ({100 * k1 / wall:.2f}% "
+                 f"of the step)" if busy is not None else "not measured"))
+        entries["mega_select"].update(config5_soft_pass_ms=soft_ms - hard_ms,
+                                      config5_fwd_bwd_ms=soft_ms,
+                                      config5_k1_device_ms=k1)
+        return ok
+    phase("22 BASELINE config 5 at 180x120 through the kernels", p_config5)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

@@ -26,5 +26,8 @@ from .trace import Tracer, TraceResult
 from .trace_wavefront import WavefrontTracer
 from .render import Camera, Renderer, camera
 from .intersect import Hit
+from .aa import AARenderer
+from .soft import SoftTracer, soft_pixel_loss_fn
+from .optimize import OptimizeResult, optimize
 
 __version__ = "0.1.0"

@@ -1530,8 +1530,12 @@ def finalize(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux=None,
         crow = finite_grad(comb[prim])             # (N, f_max + MW)
         prow = crow[:, :f_max]
         meta = crow[:, f_max:].detach().to(torch.int64)
-    else:
+    elif metaf.shape[0]:
         meta = metaf[prim].to(torch.int64)
+    else:
+        # a scene without prims: every lane missed
+        meta = torch.zeros((N, metaf.shape[1]), dtype=torch.int64,
+                           device=dev)
 
     neg1 = torch.full_like(meta[:, :TD], -1)
     tex = torch.where(hit[:, None], meta[:, :TD], neg1)

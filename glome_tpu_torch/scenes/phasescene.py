@@ -291,3 +291,51 @@ def coincident_scene(n=1000, P=None):
     Rays: block_rays."""
     P = _package(P)
     return P.group([P.sphere((0.0, 0.0, 0.0), 1.0) for _ in range(n)])
+
+
+def warp_lights_scene(P=None):
+    """A portal whose target scene has a light set of its own, built with
+    package P: the root (a floor, a mirror sphere, a glass sphere and a
+    door frame, one light) and, through the door, a target scene of two
+    spheres on a floor under two other lights -- a scene the wavefront
+    tracer refuses and the recursive Tracer renders (Shader.hs:157-175).
+    Returns (solid, lights, camera); rays: the camera's."""
+    P = _package(P)
+
+    def mat(c, ks=0.0):
+        return P.t_uniform(P.Surface(color=c, ambient=0.2, kd=0.7, ks=ks,
+                                     shine=12.0))
+
+    target = P.group([
+        P.tex(P.sphere((0.0, 1.0, 0.0), 1.0), mat((0.2, 0.9, 0.3), 0.4)),
+        P.tex(P.sphere((1.6, 0.6, -0.8), 0.6), mat((0.9, 0.8, 0.1))),
+        P.tex(P.plane((0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
+              mat((0.8, 0.8, 0.8))),
+    ])
+    warp_lights = (P.light((2.0, 6.0, -3.0), (30.0, 12.0, 12.0)),
+                   P.light((-4.0, 3.0, 2.0), (6.0, 6.0, 40.0)))
+    d = P.DELTA
+    frame = P.tex(P.difference(P.box((-1.2, 0.0, -0.2), (1.2, 2.6, 0.2)),
+                               P.box((-1.0, 0.2, -0.2 - d),
+                                     (1.0, 2.4, 0.2 + d))),
+                  mat((0.4, 0.4, 0.8)))
+    surface = P.box((-1.2, 0.0, -d), (1.2, 2.6 - d, d))
+    wx = P.compose([P.rotate((1, 0, 0), P.deg(-15)),
+                    P.translate((0.0, 1.0, 5.0))])
+    warp = P.Warp(frame=frame, scene=target, lights=warp_lights, xfm=wx)
+    solid = P.group([
+        P.transform(P.group([frame, P.tex(surface, P.t_uniform(warp))]),
+                    [P.rotate((0, 1, 0), P.deg(10)),
+                     P.translate((-0.8, 0.0, 0.0))]),
+        P.tex(P.sphere((2.0, 0.9, 0.5), 0.9),
+              P.t_uniform(P.AdditiveLayers((
+                  P.Surface(color=(0.3, 0.3, 0.3), ambient=0.1, kd=0.3),
+                  P.Reflect(0.7))))),
+        P.tex(P.sphere((-2.4, 0.7, 1.2), 0.7),
+              P.t_uniform(P.Refract(0.2, 0.8, 1.4))),
+        P.tex(P.plane((0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
+              mat((0.6, 0.5, 0.4))),
+    ])
+    lights = (P.light((3.0, 7.0, 5.0), (60.0, 60.0, 60.0)),)
+    cam = P.camera((0.0, 2.2, 8.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0), 50.0)
+    return solid, lights, cam

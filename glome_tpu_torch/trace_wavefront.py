@@ -23,7 +23,8 @@ TraceResult.overflow is all zeros and RenderConfig's capacity knobs are
 accepted and ignored.
 
 Constraint: all light sets must equal the root set (true for the
-TestScene portal, TestScene.hs:179).
+TestScene portal, TestScene.hs:179); trace.Tracer renders a portal with
+a light set of its own.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from . import color as C
 from . import megakernel as MK
 from .compile import CompiledScene
 from .config import DELTA, INFINITY, RenderConfig
-from .intersect import (MEGA, Hit, check_route, intersect_multi_table,
+from .intersect import (MEGA, Hit, intersect_multi_table,
                         shadow_query_table)
 from .trace import TraceResult, Tracer, _light_arrays
 from .vec import vnorm
@@ -97,18 +98,12 @@ class WavefrontTracer(Tracer):
 
     def __init__(self, compiled: CompiledScene, config: RenderConfig = None,
                  select: str = MK.KERNELS, route: str = MEGA):
-        MK.kernel_set(select)                 # rejects an unknown name
-        check_route(route)
-        super().__init__(compiled, config)
+        super().__init__(compiled, config, select=select, route=route)
         for w in compiled.warp_mats:
             if tuple(w.lights) != tuple(compiled.lights):
                 raise NotImplementedError(
-                    "wavefront tracer requires a single light set")
-        self.select = select
-        self.route = route
-        # intersect and shadow batches of the last trace (each batch runs
-        # every select pass of its route once)
-        self.last_batches = 0
+                    "the wavefront tracer requires a single light set; "
+                    "trace.Tracer renders a portal with its own lights")
 
     def _segments(self):
         """Child-queue segment keys, in queue order."""
@@ -328,8 +323,9 @@ class WavefrontTracer(Tracer):
         if lights is None:
             lights = self.compiled.lights
         if lights != self.compiled.lights:
-            raise NotImplementedError("wavefront tracer traces the root "
-                                      "light set only")
+            raise NotImplementedError(
+                "the wavefront tracer traces the root light set only; "
+                "trace.Tracer traces any light set")
         N = o.shape[0]
         dt = o.dtype
         R = max(recurs, 1)

@@ -1,5 +1,7 @@
 """K1-K5, M1 and M2 on the card: each CUDA kernel against its plain
-version, the wrappers' contracts, and K1's and K4's work tallies.  Every
+version, the wrappers' contracts, and K1's and K4's work tallies; the
+recursive Tracer, adaptive AA and a soft gradient step through the
+kernels against the plain set.  Every
 test needs a CUDA device and skips without one.  The card's machine has
 no JAX, so run these without the suite's conftest (which configures
 JAX):
@@ -20,7 +22,8 @@ from glome_tpu_torch.scenes.phasescene import (chain_rays, chain_scene,
                                                phase_kinds_lights,
                                                phase_kinds_rays,
                                                phase_kinds_scene,
-                                               tie_grid_rays, tie_grid_scene)
+                                               tie_grid_rays, tie_grid_scene,
+                                               warp_lights_scene)
 
 SCENES = {"phase_kinds": (phase_kinds_scene, phase_kinds_rays),
           "csg": (csg_scene, csg_rays)}
@@ -598,3 +601,62 @@ def test_device_time_on_card(dev):
     x = torch.ones(1 << 20, device=dev)
     sec = device_time(lambda: x.mul_(1.0))
     assert 0.0 < sec < 0.01
+
+
+@pytest.mark.parametrize("route", ["mega", "groups"])
+def test_recursive_tracer_matches_plain_set(dev, route):
+    """The recursive Tracer on a portal with its own lights: the kernels
+    and the plain set give the same colors (the selections are
+    bit-equal), with one K1 launch per batch on the megakernel route."""
+    solid, lights, cam = warp_lights_scene()
+    compiled = T.compile_scene(solid, lights)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig(xres=96, yres=64, maxdepth=3)
+    tracer = T.Tracer(compiled, cfg, route=route)
+    launches = MK.mega_select.launches
+    rk, tk = T.Renderer(tracer, cam, cfg).render(arrays)
+    if route == "mega":
+        assert MK.mega_select.launches - launches == tracer.last_batches
+    rp, tp = T.Renderer(T.Tracer(compiled, cfg, select=MK.PLAIN,
+                                 route=route), cam, cfg).render(arrays)
+    torch.testing.assert_close(rk, rp, rtol=0, atol=1e-6)
+    torch.testing.assert_close(tk, tp, rtol=0, atol=0)
+
+
+def test_aa_and_soft_step_match_plain_set(dev):
+    """An AA frame and the gradient of a soft pixel loss through the
+    kernels equal the plain set's on the card (AA counts exactly;
+    gradients within 1e-4 of the largest |g|: the backward's atomic sums
+    may run in another order)."""
+    from glome_tpu_torch.soft import SoftTracer, soft_pixel_loss_fn
+    solid, lights, cam = warp_lights_scene()
+    compiled = T.compile_scene(solid, lights)
+    cfg = T.RenderConfig(xres=64, yres=48, blocksize=32, maxdepth=2)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    out = {}
+    for select in (MK.KERNELS, MK.PLAIN):
+        tracer = T.Tracer(compiled, cfg, select=select)
+        aa = T.AARenderer(tracer, cam, cfg)
+        rgb, _depth = aa.render(arrays)
+        o, d = T.Renderer(tracer, cam, cfg).rays_for_pixels(
+            np.arange(64, dtype=np.float32) % 64,
+            np.arange(64, dtype=np.float32) % 48, dev)
+        params = {"scenes": [[{k: v.clone().requires_grad_(True)
+                               for k, v in ga.items()} for ga in sc]
+                             for sc in arrays["scenes"]],
+                  "lights": arrays["lights"]}
+        soft_pixel_loss_fn(SoftTracer(tracer, tau=0.05))(
+            params, o, d, torch.full((64, 3), 0.5, device=dev)).backward()
+        out[select] = (rgb, aa.last_ray_counts,
+                       [v.grad for sc in params["scenes"] for ga in sc
+                        for v in ga.values()])
+    (rk, ck, gk), (rp, cp, gp) = out[MK.KERNELS], out[MK.PLAIN]
+    assert ck == cp
+    torch.testing.assert_close(rk, rp, rtol=0, atol=1e-6)
+    scale = max(float(g.abs().max()) for g in gp if g is not None)
+    for a, b in zip(gk, gp):
+        if b is None:
+            assert a is None or not a.any()
+            continue
+        assert torch.isfinite(a).all()
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
