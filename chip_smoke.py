@@ -4,7 +4,8 @@
 Drives the port's main paths through the entry points a user calls
 (compile_scene -> to_torch -> WavefrontTracer or Tracer ->
 Renderer.render or AARenderer.render; SoftTracer + optimize for
-BASELINE config 5) with
+BASELINE config 5; the CLI, python -m glome_tpu_torch.app, and ray
+sharding over torch.distributed) with
 the hand-written CUDA kernels K1 (csrc/mega_select.cu), K2
 (csrc/block_select.cu) and K3 (csrc/mesh_block_select.cu) on the
 megakernel route, and K4 (csrc/dense_select.cu) and K5
@@ -129,7 +130,37 @@ micro_kwide), and checks them in phases:
      gradient through the plain set; the forward + backward with and
      without the soft pass and K1's device time in a profiled step; the
      first loss printed beside the TPU reference's losses[0]
-     (out/config5/config5_result.json), not gated.
+     (out/config5/config5_result.json), not gated;
+ 23. the CLI, glome_tpu_torch.app.main(argv) in-process as
+     `python -m glome_tpu_torch.app` runs it on the card (its default
+     device), writing into a temporary directory: --scene test at
+     720x480, depth 3, --iters 3: 6 K1 launches per frame, no plain
+     call, zero overflow, the PNG within the canaries of
+     out/testscene_tpu.png; its set-up seconds (compile_scene, to_torch,
+     the tracer) and each render's seconds;
+ 24. the app's --aa frame at 720x480: 30 K1 launches, pass 1 = 50,700
+     rays, at most 2 rays/px (printed);
+ 25. picks: --pick 360 240, and a PickSession over the card's tensors
+     run on a hit (the dodecahedron at 136 204), a miss, an invalid line
+     and 'q'; tags, prim serials and the session's replies equal those of
+     the same picks through the plain set (megakernel.PLAIN);
+ 26. the work maps --debug (torch only, no kernel) and --debug-full
+     (K1) at 720x480: seconds, the mean and max of prims and nodes; at
+     180x120 the --debug-full counts through the kernels equal those
+     through the plain set, and the --debug counts on the card those on
+     CPU tensors;
+ 27. tests/fixtures/{miniflake,gears}.nff through the app at their own
+     96x64, depth 2, against tests/golden/*_rgb.npy under the canaries
+     (max |diff| printed);
+ 28. ray sharding (glome_tpu_torch.parallel) through
+     python -m glome_tpu_torch.tools.sharded: two gloo ranks sharing the
+     card, each its own process importing only torch and
+     glome_tpu_torch: the TestScene 720x480 depth-3 frame through
+     sharded_render_fn against phase 23's single-process frame (max
+     |diff| <= 1e-5, every 8-bit value equal; 6 K1 launches per rank),
+     and one sharded_train_step_fn step of the two-prim scene of
+     glome_tpu's tests/test_sharding.py against the single-process
+     full-batch step (rtol 1e-5; the loss equal on both ranks).
 
 Kernel against plain: K2, K3 and K5 equal their plain versions on
 every lane (hit or blocked, t bit for bit, and the winner: each takes
@@ -156,11 +187,14 @@ result.
     python3 chip_smoke.py
 """
 
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -281,7 +315,7 @@ def main():
     import glome_tpu_torch as T
     from glome_tpu_torch import block_kernel as BK
     from glome_tpu_torch import group_kernels as GK
-    from glome_tpu_torch import intersect as TI
+    from glome_tpu_torch.intersect import GROUPS, bvh_args, dense_args
     from glome_tpu_torch import kernels
     from glome_tpu_torch import megakernel as MK
     from glome_tpu_torch import mesh_kernel as MSH
@@ -1027,10 +1061,10 @@ def main():
         sc = cc.scenes[si]
         ga = garrs["scenes"][si]
         if kind == "dense":
-            args, bbox = TI.dense_args(sc, ga, gi, shadow, dev)
+            args, bbox = dense_args(sc, ga, gi, shadow, dev)
             return (GK.dense_select, GK.dense_select_plain, args,
                     {"block_bbox": bbox})
-        args, _order = TI.bvh_args(sc, ga, gi, shadow, dev)
+        args, _order = bvh_args(sc, ga, gi, shadow, dev)
         return GK.bvh_select, GK.bvh_select_plain, args, {}
 
     def group_label(cc, si, gi):
@@ -1303,7 +1337,7 @@ def main():
         imgs = {}
         for sel in (MK.KERNELS, MK.PLAIN):
             r = T.Renderer(T.WavefrontTracer(co, ccfg, select=sel,
-                                             route=TI.GROUPS), ccam, ccfg)
+                                             route=GROUPS), ccam, ccfg)
             reset_counts()
             rgb, _depth = r.render(carrs)
             counts = read_counts(f"coincident_96x64_groups_{sel}")
@@ -1322,7 +1356,7 @@ def main():
     n_bvh = sum(k == "bvh" for _s, _g, k in groups_ts)
 
     def p_group_frame():
-        tracer = T.WavefrontTracer(compiled, cfg, route=TI.GROUPS)
+        tracer = T.WavefrontTracer(compiled, cfg, route=GROUPS)
         renderer = T.Renderer(tracer, cam, cfg)
         reset_counts()
         t0 = time.perf_counter()
@@ -1365,7 +1399,7 @@ def main():
         small = T.RenderConfig.tuned(xres=180, yres=120)
         rplain = T.Renderer(T.WavefrontTracer(compiled, small,
                                               select=MK.PLAIN,
-                                              route=TI.GROUPS), cam, small)
+                                              route=GROUPS), cam, small)
         reset_counts()
         rp, _ = rplain.render(arrays)
         counts = read_counts("testscene_180x120_groups_plain")
@@ -1407,7 +1441,7 @@ def main():
 
     def p_group_timing():
         renderer = T.Renderer(T.WavefrontTracer(compiled, cfg,
-                                                route=TI.GROUPS), cam, cfg)
+                                                route=GROUPS), cam, cfg)
         print(f"  clocks at the start: {clocks()}")
         frame_ms = cuda_ms(lambda: renderer.render(arrays), 3)
         print(f"  [{smi_line}] group-route 720x480 depth-3 frame: "
@@ -1768,6 +1802,271 @@ def main():
                                       config5_k1_device_ms=k1)
         return ok
     phase("22 BASELINE config 5 at 180x120 through the kernels", p_config5)
+
+    # -- 23-28: the CLI (python -m glome_tpu_torch.app) and ray sharding --
+    from glome_tpu_torch import app as APP
+    from glome_tpu_torch import debug as DBG
+    from glome_tpu_torch.pick import PickSession
+    from glome_tpu_torch.tools import sharded as SH
+    app_dir = tempfile.mkdtemp(prefix="chip_smoke_app_")
+    app_frames = {}
+
+    def run_app(argv, name):
+        """app.main(argv) in-process, its PNG written into app_dir;
+        returns (result dict, PNG path)."""
+        path = os.path.join(app_dir, name + ".png")
+        return APP.main(argv + ["--out", path]), path
+
+    def only_k1(counts):
+        return (counts["plain"] == 0
+                and all(counts[k] == 0 for k in kernel_fns
+                        if k != "mega_select"))
+
+    # -- 23. the app's TestScene frame --------------------------------------
+    def p_app_frame():
+        iters = 3
+        reset_counts()
+        res, path = run_app(["--scene", "test", "--iters", str(iters)],
+                            "app_testscene")
+        counts = read_counts("app_testscene_720x480_3_frames")
+        entries["mega_select"]["launches_by_path"][
+            "app_testscene_720x480"] = counts["mega_select"] / iters
+        img = read_png(path)
+        app_frames["test"] = res["rgb"]
+        finite = bool(np.isfinite(res["rgb"]).all())
+        ms = [1e3 * s for s in res["render_s"]]
+        entries["mega_select"].update(app_setup_s=res["setup_s"],
+                                      app_frame_ms=ms)
+        print(f"  [{smi_line}] app set-up (compile_scene + to_torch + "
+              f"tracer) {res['setup_s']:.3f} s; render "
+              + ", ".join(f"{m:.3f}" for m in ms)
+              + f" ms (host clock to torch.cuda.synchronize); K1 "
+              f"{counts['mega_select'] / iters:g} per frame (expected 6), "
+              f"overflow {res['overflow']}")
+        ok = canaries_ok("app PNG vs out/testscene_tpu.png", img,
+                         read_png(os.path.join(ROOT, "out",
+                                               "testscene_tpu.png")))
+        # the set-up apart, on the host clock: compile_scene, to_torch,
+        # the tracer, and the megakernel plan that the first frame builds,
+        # with every BVH build of these steps timed on its own
+        from glome_tpu_torch import accel as A
+        builders = {k: getattr(A, k) for k in ("build_bvh", "build_bvh2")}
+        bvh = {"s": 0.0, "n": 0}
+
+        def timed(fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    bvh["s"] += time.perf_counter() - t
+                    bvh["n"] += 1
+            return run
+        split = {}
+        for k, fn in builders.items():
+            setattr(A, k, timed(fn))
+        try:
+            solid, lights, _cam = test_scene()
+            t0 = time.perf_counter()
+            comp = T.compile_scene(solid, lights)
+            split["compile_scene_s"] = time.perf_counter() - t0
+            split["compile_scene_bvh_s"] = bvh["s"]
+            t0 = time.perf_counter()
+            T.to_torch(comp.arrays(), dev)
+            torch.cuda.synchronize()
+            split["to_torch_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            T.WavefrontTracer(comp, T.RenderConfig.tuned())
+            split["tracer_s"] = time.perf_counter() - t0
+            b0 = bvh["s"]
+            t0 = time.perf_counter()
+            MK.build_plan(comp)
+            split["plan_s"] = time.perf_counter() - t0
+            split["plan_bvh_s"] = bvh["s"] - b0
+            split["bvh_builds"] = bvh["n"]
+        finally:
+            for k, fn in builders.items():
+                setattr(A, k, fn)
+        entries["mega_select"]["app_setup_split"] = split
+        print(f"  [{smi_line}] set-up apart (host clock): compile_scene "
+              f"{split['compile_scene_s']:.3f} s (BVH builds "
+              f"{split['compile_scene_bvh_s']:.3f} s), to_torch "
+              f"{split['to_torch_s']:.3f} s, WavefrontTracer "
+              f"{split['tracer_s']:.3f} s; the megakernel plan (built by "
+              f"the first frame) {split['plan_s']:.3f} s, of which its BVH "
+              f"builds {split['plan_bvh_s']:.3f} s ({split['bvh_builds']} "
+              f"builds in all)")
+        return (ok and finite and img.shape == (480, 720, 3)
+                and counts["mega_select"] == 6 * iters and only_k1(counts)
+                and res["overflow"] == {})
+    phase("23 app: TestScene 720x480 depth 3, python -m glome_tpu_torch.app",
+          p_app_frame)
+
+    # -- 24. the app's AA frame ---------------------------------------------
+    def p_app_aa():
+        reset_counts()
+        res, _path = run_app(["--scene", "test", "--aa"], "app_aa")
+        counts = read_counts("app_aa_720x480")
+        rc = res["ray_counts"]
+        rays_px = sum(rc.values()) / (720 * 480)
+        entries["mega_select"]["app_aa_rays_per_px"] = rays_px
+        print(f"  [{smi_line}] app --aa render {1e3 * res['render_s'][0]:.3f}"
+              f" ms; ray counts {rc}, {rays_px:.4f} rays/px, K1 "
+              f"{counts['mega_select']}")
+        return (rc["pass1"] == 50_700 and rays_px <= 2.0
+                and counts["mega_select"] == 30 and only_k1(counts)
+                and res["overflow"] == {}
+                and bool(np.isfinite(res["rgb"]).all()))
+    phase("24 app: adaptive AA 720x480", p_app_aa)
+
+    # -- 25. picks ------------------------------------------------------------
+    def p_picks():
+        reset_counts()
+        res, _ = run_app(["--scene", "test", "--pick", "360", "240"], "pick")
+        counts = read_counts("app_pick")
+        ok = counts["mega_select"] > 0 and only_k1(counts)
+        # a hit on the dodecahedron, a miss, an invalid line and 'q'
+        script = "136 204\n0 0\nnot a pick\nq\n488 268\n"
+        replies, picks = {}, {}
+        for select in (MK.KERNELS, MK.PLAIN):
+            sess = PickSession(T.WavefrontTracer(compiled, cfg,
+                                                 select=select), cam, arrays)
+            out = io.StringIO()
+            sess.run(inp=io.StringIO(script), out=out)
+            replies[select] = out.getvalue().splitlines()
+            picks[select] = [sess.pick(x, y) for x, y in
+                             ((360, 240), (136, 204), (0, 0), (488, 268))]
+        print(f"  --pick 360 240: {res['tags']}; session (kernels): "
+              f"{replies[MK.KERNELS]}")
+        same = all(a["tags"] == b["tags"]
+                   and a["prim_serial"] == b["prim_serial"]
+                   for a, b in zip(picks[MK.KERNELS], picks[MK.PLAIN]))
+        lines = replies[MK.KERNELS]
+        ok &= (same and res["tags"] == picks[MK.PLAIN][0]["tags"]
+               and replies[MK.KERNELS] == replies[MK.PLAIN]
+               and len(lines) == 4 and lines[1].endswith(" dodecahedron")
+               and lines[2].endswith("(no tags)") and lines[3].startswith("?"))
+        print(f"  kernels vs plain set: tags and prim_serial equal on "
+              f"{len(picks[MK.PLAIN])} picks {same}; session replies equal "
+              f"{replies[MK.KERNELS] == replies[MK.PLAIN]}")
+        return ok
+    phase("25 app: picks (--pick, PickSession)", p_picks)
+
+    # -- 26. work maps --------------------------------------------------------
+    def p_work_maps():
+        ok = True
+        for flag in ("--debug", "--debug-full"):
+            reset_counts()
+            res, _ = run_app(["--scene", "test", flag], flag[2:])
+            counts = read_counts(f"app_{flag[2:]}_720x480")
+            p, n = res["prims"], res["nodes"]
+            print(f"  [{smi_line}] {flag} 720x480: {res['debug_s']:.3f} s; "
+                  f"prims mean {p.mean():.4f} max {p.max():.0f}, nodes mean "
+                  f"{n.mean():.4f} max {n.max():.0f}; K1 "
+                  f"{counts['mega_select']}")
+            entries["mega_select"][f"app_{flag[2:]}_s"] = res["debug_s"]
+            ok &= only_k1(counts) and p.max() > 0 and n.max() > 0
+            ok &= (counts["mega_select"] == 0 if flag == "--debug"
+                   else counts["mega_select"] > 0)
+        cpu = T.to_torch(compiled.arrays(), "cpu")
+        maps = {}
+        for key, a, full, select in (("cpu", cpu, False, MK.KERNELS),
+                                     ("card", arrays, False, MK.KERNELS),
+                                     ("kernels", arrays, True, MK.KERNELS),
+                                     ("plain", arrays, True, MK.PLAIN)):
+            maps[key] = DBG.debug_image(compiled, a, cam, 180, 120,
+                                        full=full, select=select)[1:]
+        for a, b in (("card", "cpu"), ("kernels", "plain")):
+            same = [float((x == y).mean()) for x, y in zip(maps[a], maps[b])]
+            print(f"  180x120 {'--debug' if a == 'card' else '--debug-full'}"
+                  f": {a} vs {b}: prims equal on {100 * same[0]:.4f}%, "
+                  f"nodes on {100 * same[1]:.4f}% of pixels")
+            ok &= same == [1.0, 1.0]
+        return ok
+    phase("26 app: work maps (--debug, --debug-full)", p_work_maps)
+
+    # -- 27. the NFF fixtures -------------------------------------------------
+    def p_nff():
+        ok = True
+        for name in ("miniflake", "gears"):
+            reset_counts()
+            res, path = run_app(
+                ["--scene", os.path.join(ROOT, "tests", "fixtures",
+                                         name + ".nff"), "--depth", "2"],
+                "nff_" + name)
+            counts = read_counts(f"app_nff_{name}")
+            gold = np.load(os.path.join(ROOT, "tests", "golden",
+                                        name + "_rgb.npy"))
+            diff = np.abs(res["rgb"] - gold)
+            print(f"  {name}.nff {res['xres']}x{res['yres']}: max |diff| vs "
+                  f"tests/golden/{name}_rgb.npy {diff.max():.6g}, "
+                  f"{int((diff.max(axis=-1) > 1e-5).sum())} pixels beyond "
+                  f"1e-5; K1 {counts['mega_select']}")
+            ok &= canaries_ok(f"{name} vs golden", read_png(path),
+                              quantize(gold))
+            ok &= counts["mega_select"] > 0 and only_k1(counts)
+        return ok
+    phase("27 app: NFF fixtures", p_nff)
+
+    # -- 28. ray sharding over torch.distributed ------------------------------
+    def p_sharded():
+        ok = True
+        outs = {}
+        for scene, jobs in (("test", "render"), ("two_prim", "train")):
+            d = os.path.join(app_dir, "sharded_" + scene)
+            t0 = time.perf_counter()
+            rc = SH.main(["--scene", scene, "--jobs", jobs, "--nprocs", "2",
+                          "--timeout", "600", "--out", d])
+            print(f"  {scene} {jobs}: 2 gloo ranks on one card, exit {rc}, "
+                  f"{time.perf_counter() - t0:.1f} s with process start")
+            if rc != 0:
+                return False
+            outs[scene] = [torch.load(os.path.join(d, f"rank{r}.pt"))
+                           for r in (0, 1)]
+        for r in outs["test"] + outs["two_prim"]:
+            ok &= not r["foreign_modules"]
+        ranks = outs["test"]
+        for r in ranks:
+            entries["mega_select"]["launches_by_path"][
+                f"sharded_testscene_rank{r['rank']}"] = r["render_launches"]
+        want = app_frames.get("test")
+        if want is None:
+            print("  phase 23's frame is missing")
+            return False
+        for r in ranks:
+            got = torch.clamp(r["rgb"], 0.0, 1.0).numpy()
+            diff = np.abs(got - want)
+            n_px = int((diff.max(axis=-1) > 0).sum())
+            lv = int((quantize(got) != quantize(want)).any(axis=-1).sum())
+            print(f"  [{smi_line}] rank {r['rank']}: TestScene 720x480 "
+                  f"sharded frame {1e3 * r['render_s']:.3f} ms warm, "
+                  f"{1e3 * r['render_cold_s']:.3f} ms cold (half the rays, "
+                  f"with the all-gather; host clock to synchronize), K1 "
+                  f"{r['render_launches']} in the warm one; "
+                  f"vs phase 23's single-process frame: max |diff| "
+                  f"{diff.max():.6g}, {n_px} pixels differ, {lv} in their "
+                  f"8-bit value")
+            ok &= (diff.max() <= 1e-5 and lv == 0
+                   and r["render_launches"] == 6)
+        _c, c2, cam2, tr2, a2 = SH.scene_setup("two_prim", dev)
+        o2, d2, _inv = SH.frame_rays(tr2, cam2, c2, dev)
+        new, loss = SH.full_batch_step(tr2, a2, o2, d2, torch.zeros_like(o2),
+                                       SH.LR)
+        from glome_tpu_torch.optimize import tree_leaves
+        tr = outs["two_prim"]
+        rel = max(float(((a - b.cpu()).abs() / (b.cpu().abs() + 1e-7)).max())
+                  for r in tr for a, b in zip(tree_leaves(r["new_arrays"]),
+                                              tree_leaves(new)))
+        l0, l1 = (float(r["loss"]) for r in tr)
+        print(f"  two-prim train step: loss rank 0 {l0:.9g}, rank 1 "
+              f"{l1:.9g}, single process {float(loss):.9g}; new arrays vs "
+              f"the full-batch step: max rel diff {rel:.3g}; K1 per rank "
+              f"{[r['train_launches'] for r in tr]}")
+        ok &= (l0 == l1 and abs(l0 - float(loss)) <= 1e-6 * abs(float(loss))
+               and rel <= 1e-5 and all(r["train_launches"] > 0 for r in tr))
+        return ok
+    phase("28 ray sharding: 2 gloo ranks on one card", p_sharded)
+    shutil.rmtree(app_dir, ignore_errors=True)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

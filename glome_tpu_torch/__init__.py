@@ -25,7 +25,8 @@ from .compile import compile_scene, CompiledScene, to_torch
 from .trace import Tracer, TraceResult
 from .trace_wavefront import WavefrontTracer
 from .render import Camera, Renderer, camera
-from .intersect import Hit
+from .intersect import Hit, intersect, shadow_query
+from .query import inside, metainfo
 from .aa import AARenderer
 from .soft import SoftTracer, soft_pixel_loss_fn
 from .optimize import OptimizeResult, optimize

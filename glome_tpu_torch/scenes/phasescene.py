@@ -20,8 +20,10 @@ def _package(P):
     return P
 
 
-def phase_kinds_scene(P=None):
-    """The all-phase-kinds solid, built with package P."""
+def phase_kinds_scene(P=None, tagged=False):
+    """The all-phase-kinds solid, built with package P; with `tagged`,
+    each of its items is wrapped in a tag of its own ("item0", ...), so
+    a pick names the item it hit."""
     P = _package(P)
 
     def mat(c):
@@ -73,6 +75,8 @@ def phase_kinds_scene(P=None):
                     P.translate((2, -2, 6))])
     items.append(P.tex(P.transform(P.sphere((0, 0, 0), 1.0), [xf]),
                        mat((0.9, 0.3, 0.1))))
+    if tagged:
+        items = [P.tag(it, f"item{i}") for i, it in enumerate(items)]
     return P.group(items)
 
 
@@ -339,3 +343,19 @@ def warp_lights_scene(P=None):
     lights = (P.light((3.0, 7.0, 5.0), (60.0, 60.0, 60.0)),)
     cam = P.camera((0.0, 2.2, 8.0), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0), 50.0)
     return solid, lights, cam
+
+
+def two_prim_scene(P=None):
+    """glome_tpu's tests/test_sharding.py scene, built with package P: a
+    red sphere on a grey ground plane under one light.  Returns (solid,
+    lights, camera); its tests render it at 32x16, depth 2."""
+    P = _package(P)
+    solid = P.group([
+        P.tex(P.sphere((0, 1, 0), 1.0),
+              P.t_uniform(P.Surface(color=(1, 0, 0), ambient=0.2, kd=0.8))),
+        P.tex(P.plane((0, 0, 0), (0, 1, 0)),
+              P.t_uniform(P.Surface(color=(0.6, 0.6, 0.6), ambient=0.1,
+                                    kd=1.0))),
+    ])
+    lights = (P.light((-3, 6, 4), (60, 60, 60)),)
+    return solid, lights, P.camera((0, 2, 6), (0, 1, 0), (0, 1, 0), 45)

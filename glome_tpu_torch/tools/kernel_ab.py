@@ -67,7 +67,7 @@ import torch
 from .. import accel as A
 from .. import block_kernel as BK
 from .. import group_kernels as GK
-from .. import intersect as TI
+from ..intersect import bvh_args, dense_args
 from .. import kernels
 from .. import megakernel as MK
 from .. import mesh_kernel as MSH
@@ -573,7 +573,7 @@ def main(argv=None) -> int:
                 shadow = mode == "shadow"
                 runs = _k5_runs(olds["bvh_select.cu"],
                                 designs["bvh_select.cu"],
-                                TI.bvh_args(sc, garrs, gi, shadow, dev)[0],
+                                bvh_args(sc, garrs, gi, shadow, dev)[0],
                                 dev, stream, any_lib)
                 n = rays.shape[1]
                 (to, lo), (tn, ln) = (runs["old"](rays, seed, shadow),
@@ -615,7 +615,7 @@ def _k4_group(device, sc, si, gi, g, arrays, q0, seed, dev, old_k4, new_k4,
               stream, ms, turns):
     """{label: row} of K4 old against new on one dense group with the L0
     batch q0."""
-    (ptype, pm, minv, vis, cons), cull = TI.dense_args(
+    (ptype, pm, minv, vis, cons), cull = dense_args(
         sc, arrays["scenes"][si], gi, False, dev)
     ga = arrays["scenes"][si][gi]
     block = GK.block_aabbs(ptype, {k: v.detach() for k, v in ga.items()

@@ -19,7 +19,7 @@ import torch
 import glome_tpu as G
 import glome_tpu_torch as T
 from glome_tpu.aa import AARenderer as JAARenderer
-from glome_tpu_torch import intersect as TI
+from glome_tpu_torch.intersect import GROUPS, MEGA
 from glome_tpu_torch.aa import AARenderer
 
 GOLD = os.path.join(os.path.dirname(__file__), "golden", "aa_64.npy")
@@ -52,7 +52,7 @@ def _cfg(P, **kw):
                           min_tiles=0, **kw)
 
 
-def _render(solid=None, tracer_cls="WavefrontTracer", route=TI.MEGA, **kw):
+def _render(solid=None, tracer_cls="WavefrontTracer", route=MEGA, **kw):
     s, lights, cam = _scene(T)
     compiled = T.compile_scene(s if solid is None else solid, lights)
     cfg = _cfg(T, **kw)
@@ -100,8 +100,8 @@ def test_aa_flat_region_skips_refinement():
 
 
 @pytest.mark.parametrize("tracer_cls,route", [
-    ("WavefrontTracer", TI.MEGA), ("Tracer", TI.MEGA),
-    ("Tracer", TI.GROUPS)])
+    ("WavefrontTracer", MEGA), ("Tracer", MEGA),
+    ("Tracer", GROUPS)])
 def test_aa_counts_and_golden_match_glome_tpu(glome_tpu_counts, tracer_cls,
                                               route):
     """Per-pass counts equal glome_tpu's; the frame within atol 1e-6 of
@@ -121,13 +121,13 @@ def test_aa_uses_the_callers_tracer():
     solid, lights, cam = _scene(T)
     compiled = T.compile_scene(solid, lights)
     cfg = _cfg(T)
-    tracer = T.Tracer(compiled, cfg, route=TI.GROUPS)
+    tracer = T.Tracer(compiled, cfg, route=GROUPS)
     assert AARenderer(tracer, cam, cfg).tracer is tracer
 
 
 @pytest.mark.parametrize("tracer_cls,route", [
-    ("WavefrontTracer", TI.MEGA), ("WavefrontTracer", TI.GROUPS),
-    ("Tracer", TI.MEGA), ("Tracer", TI.GROUPS)])
+    ("WavefrontTracer", MEGA), ("WavefrontTracer", GROUPS),
+    ("Tracer", MEGA), ("Tracer", GROUPS)])
 def test_tmax_zero_lanes_are_misses(tracer_cls, route):
     """The tracer's tmax reaches the select kernels' seed: a lane with
     tmax 0 is culled (a transparent miss), the rest trace as before."""

@@ -413,7 +413,7 @@ def test_dense_cull_on_testscene_cones(dev):
     fewer cones per ray than the per-128-prim block cull did (117.95 per
     ray on the card), and equals the plain version."""
     from glome_tpu_torch import group_kernels as GK
-    from glome_tpu_torch import intersect as TI
+    from glome_tpu_torch.intersect import dense_args
     from glome_tpu_torch.scenes import test_scene
     from glome_tpu_torch.tools.kernel_ab import l0_batch
     solid, lights, cam = test_scene()
@@ -421,7 +421,7 @@ def test_dense_cull_on_testscene_cones(dev):
     sc = compiled.scenes[0]
     gi = next(i for i, g in enumerate(sc.groups) if g.ptype == "cone")
     arrays = T.to_torch(compiled.arrays(), dev)["scenes"][0]
-    args, cull = TI.dense_args(sc, arrays, gi, False, dev)
+    args, cull = dense_args(sc, arrays, gi, False, dev)
     rays = l0_batch(cam, 720, 480, dev)
     seed = rays[6].contiguous()
     tally = torch.zeros((2, rays.shape[1]), dtype=torch.int32, device=dev)
@@ -474,7 +474,7 @@ def test_bvh_kernel_breaks_ties_by_row(dev, case, shadow):
     group.  K5 equals its plain version on every lane, winners
     included: the lowest leaf-order row at the least t."""
     from glome_tpu_torch import group_kernels as GK
-    from glome_tpu_torch import intersect as TI
+    from glome_tpu_torch.intersect import bvh_args
     from glome_tpu_torch.compile import materialize_scene_params
     from glome_tpu_torch.scenes.phasescene import coincident_scene
     solid = coincident_scene() if case == "coincident" else tie_grid_scene()
@@ -482,7 +482,7 @@ def test_bvh_kernel_breaks_ties_by_row(dev, case, shadow):
     sc = compiled.scenes[0]
     garrs = materialize_scene_params(
         sc, T.to_torch(compiled.arrays(), dev)["scenes"][0])
-    args, _order = TI.bvh_args(sc, garrs, 0, shadow, dev)
+    args, _order = bvh_args(sc, garrs, 0, shadow, dev)
     if case == "coincident":
         assert GK.bvh_records(args[1], dev).depth <= 12
         rays, seed = _block_rays(dev, 8192, 7.0 if shadow else T.INFINITY,
@@ -523,14 +523,14 @@ def test_group_route_kernels_match_plain_route(dev):
     """The whole group route through K4/K5 against the same route through
     the plain versions, on the all-phase-kinds scene with its lattice
     groups given a BVH."""
-    from glome_tpu_torch import intersect as TI
+    from glome_tpu_torch.intersect import intersect_multi
     compiled = T.compile_scene(phase_kinds_scene(), phase_kinds_lights(),
                                accel_min_size=64)
     arrays = T.to_torch(compiled.arrays(), dev)
     o, d = (torch.as_tensor(a, device=dev) for a in phase_kinds_rays(4096))
     sid = torch.zeros(4096, dtype=torch.int32, device=dev)
-    hk = TI.intersect_multi(compiled, arrays, o, d, sid)
-    hp = TI.intersect_multi(compiled, arrays, o, d, sid, select=MK.PLAIN)
+    hk = intersect_multi(compiled, arrays, o, d, sid)
+    hp = intersect_multi(compiled, arrays, o, d, sid, select=MK.PLAIN)
     torch.cuda.synchronize()
     assert torch.equal(hk.hit, hp.hit)
     assert torch.equal(hk.t, hp.t)
@@ -660,3 +660,102 @@ def test_aa_and_soft_step_match_plain_set(dev):
             continue
         assert torch.isfinite(a).all()
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
+
+
+def test_app_frame_and_work_maps_on_card(dev, tmp_path):
+    """python -m glome_tpu_torch.app on the card (its default device):
+    the frame goes through K1 with no plain call and equals the CPU run
+    of the same argv (the selections are bit-equal); the --debug map on
+    CUDA tensors equals the CPU's, and --debug-full through the kernels
+    equals it through the plain set."""
+    from glome_tpu_torch import app, debug
+    from glome_tpu_torch.io import read_png
+    argv = ["--scene", "simple", "--xres", "48", "--yres", "32"]
+    n0, p0 = MK.mega_select.launches, MK.mega_select_plain.calls
+    res = app.main(argv + ["--out", str(tmp_path / "gpu.png")])
+    # one intersect and one shadow batch: nothing in the scene reflects,
+    # so the deeper levels' queues are empty and launch nothing
+    assert MK.mega_select.launches - n0 == 2
+    assert MK.mega_select_plain.calls == p0
+    app.main(argv + ["--device", "cpu", "--out", str(tmp_path / "cpu.png")])
+    np.testing.assert_array_equal(read_png(str(tmp_path / "gpu.png")),
+                                  read_png(str(tmp_path / "cpu.png")))
+    assert res["overflow"] == {}
+    solid, lights = phase_kinds_scene(), phase_kinds_lights()
+    compiled = T.compile_scene(solid, lights, accel_min_size=64)
+    cam = T.camera((0.5, 0.2, -4.0), (0.0, 0.0, 6.0), (0, 1, 0), 60)
+    maps = {}
+    for device, full, select in (("cpu", False, MK.KERNELS),
+                                 (dev, False, MK.KERNELS),
+                                 (dev, True, MK.KERNELS),
+                                 (dev, True, MK.PLAIN)):
+        arrays = T.to_torch(compiled.arrays(), device)
+        _img, prims, nodes = debug.debug_image(compiled, arrays, cam, 64, 48,
+                                               full=full, select=select)
+        maps[(str(device), full, select)] = (prims, nodes)
+    for a, b in zip(maps[("cpu", False, MK.KERNELS)],
+                    maps[(str(dev), False, MK.KERNELS)]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(maps[(str(dev), True, MK.KERNELS)],
+                    maps[(str(dev), True, MK.PLAIN)]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_picks_and_queries_on_card(dev):
+    """Picks through K1 equal those through the plain set; inside and
+    metainfo on CUDA tensors equal the CPU's."""
+    from glome_tpu_torch.pick import PickSession
+    compiled = T.compile_scene(phase_kinds_scene(tagged=True),
+                               phase_kinds_lights())
+    cam = T.camera((0.5, 0.2, -4.0), (0.0, 0.0, 6.0), (0, 1, 0), 60)
+    cfg = T.RenderConfig(xres=64, yres=48, maxdepth=2)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    sk = PickSession(T.WavefrontTracer(compiled, cfg), cam, arrays)
+    sp = PickSession(T.WavefrontTracer(compiled, cfg, select=MK.PLAIN), cam,
+                     arrays)
+    for y in range(2, 48, 6):
+        for x in range(2, 64, 6):
+            assert sk.pick(x, y) == sp.pick(x, y), (x, y)
+    pts = np.random.default_rng(11).uniform(
+        (-4.5, -2.0, -1.5), (6.0, 4.5, 13.0), (4096, 3)).astype(np.float32)
+    cpu = T.to_torch(compiled.arrays(), "cpu")
+    assert torch.equal(T.inside(compiled, arrays, torch.as_tensor(pts)).cpu(),
+                       T.inside(compiled, cpu, torch.as_tensor(pts)))
+    for a, b in zip(T.metainfo(compiled, arrays, torch.as_tensor(pts)),
+                    T.metainfo(compiled, cpu, torch.as_tensor(pts))):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_sharded_render_and_step_on_card(dev, tmp_path):
+    """Two gloo ranks sharing the card (glome_tpu_torch.tools.sharded):
+    the sharded frame equals the single-process frame on the card, and
+    both ranks hold the same loss and arrays after the step."""
+    import os
+    import subprocess
+    import sys
+    from glome_tpu_torch.optimize import tree_leaves
+    from glome_tpu_torch.tools import sharded
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m", "glome_tpu_torch.tools.sharded", "--scene",
+         "two_prim", "--timeout", "300", "--out", str(tmp_path)],
+        cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        capture_output=True, text=True, timeout=400)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    ranks = [torch.load(os.path.join(tmp_path, f"rank{r}.pt"))
+             for r in (0, 1)]
+    _c, cfg, cam, tracer, arrays = sharded.scene_setup("two_prim", dev)
+    o, d, inv = sharded.frame_rays(tracer, cam, cfg, dev)
+    with torch.no_grad():
+        res = tracer.trace(arrays, o, d)
+    rgb = (res.color[..., :3] * res.color[..., 3:4])[inv].reshape(
+        cfg.yres, cfg.xres, 3).cpu()
+    new, loss = sharded.full_batch_step(tracer, arrays, o, d,
+                                        torch.zeros_like(o), sharded.LR)
+    for r in ranks:
+        assert r["render_launches"] > 0 and r["train_launches"] > 0
+        torch.testing.assert_close(r["rgb"], rgb, rtol=0, atol=0)
+        np.testing.assert_allclose(float(r["loss"]), float(loss), rtol=1e-6)
+        for a, b in zip(tree_leaves(r["new_arrays"]), tree_leaves(new)):
+            torch.testing.assert_close(a, b.cpu(), rtol=1e-5, atol=1e-7)
+    assert float(ranks[0]["loss"]) == float(ranks[1]["loss"])

@@ -26,7 +26,7 @@ import glome_tpu as G
 import glome_tpu_torch as T
 import glome_tpu.intersect  # noqa: F401  (the module, not G.intersect)
 from glome_tpu.scenes import test_scene as jax_test_scene
-from glome_tpu_torch import intersect as TI
+from glome_tpu_torch.intersect import intersect_multi, shadow_query_multi
 from glome_tpu_torch import megakernel as TMK
 from glome_tpu_torch.render import pixel_coords, primary_rays, tile_order
 from glome_tpu_torch.scenes import test_scene as torch_test_scene
@@ -111,8 +111,8 @@ def multi_case(request):
     try:
         args = (ct, at, torch.as_tensor(o), torch.as_tensor(d),
                 torch.as_tensor(sid))
-        ht = TI.intersect_multi(*args, select=TMK.PLAIN)
-        bt = TI.shadow_query_multi(*args, torch.as_tensor(tmax),
+        ht = intersect_multi(*args, select=TMK.PLAIN)
+        bt = shadow_query_multi(*args, torch.as_tensor(tmax),
                                    select=TMK.PLAIN)
     finally:
         torch.set_num_threads(n)
@@ -172,7 +172,7 @@ def test_group_route_gradient_matches_jax():
                if g.ptype == "sphere"]
     for gi in spheres:
         arrays["scenes"][0][gi]["center"].requires_grad_(True)
-    h = TI.intersect_multi(ct, arrays, torch.as_tensor(o), torch.as_tensor(d),
+    h = intersect_multi(ct, arrays, torch.as_tensor(o), torch.as_tensor(d),
                            torch.as_tensor(sid), select=TMK.PLAIN)
     torch.where(h.hit, h.t, torch.zeros_like(h.t)).sum().backward()
     nonzero = 0

@@ -41,7 +41,8 @@ from glome_tpu.scenes import test_scene as jax_test_scene
 from glome_tpu_torch import accel as A
 from glome_tpu_torch import block_kernel as BK
 from glome_tpu_torch import group_kernels as GK
-from glome_tpu_torch import intersect as TI
+from glome_tpu_torch.intersect import (GROUPS, bvh_args, dense_args,
+                                       intersect_multi_table)
 from glome_tpu_torch import kernels
 from glome_tpu_torch import megakernel as TMK
 from glome_tpu_torch.compile import group_accel, materialize_scene_params
@@ -347,7 +348,7 @@ def test_record_walk_breaks_ties_as_the_plain_version(testscene_pair, case,
     sc = cc.scenes[0]
     garrs = materialize_scene_params(
         sc, T.to_torch(cc.arrays(), "cpu")["scenes"][0])
-    (ptype, bvh, rows, vis, cons), _order = TI.bvh_args(sc, garrs, gi,
+    (ptype, bvh, rows, vis, cons), _order = bvh_args(sc, garrs, gi,
                                                         shadow, "cpu")
     n = 192
     if case == "tie_grid":
@@ -605,7 +606,7 @@ def test_cull_boxes_contain_every_candidate(testscene_pair, scene):
     assert len(groups) == (7 if scene == "testscene" else 1)
     for si, gi in groups:
         g = ct.scenes[si].groups[gi]
-        args, table = TI.dense_args(ct.scenes[si], arrays["scenes"][si], gi,
+        args, table = dense_args(ct.scenes[si], arrays["scenes"][si], gi,
                                     False, "cpu")
         P = g.size
         n_sub = (P + GK.SUB - 1) // GK.SUB
@@ -689,7 +690,7 @@ def test_unknown_route_is_refused(testscene_pair):
     with pytest.raises(ValueError):
         T.WavefrontTracer(ct, route="pallas")
     with pytest.raises(ValueError):
-        TI.intersect_multi_table(ct, None, torch.zeros((8, 1)),
+        intersect_multi_table(ct, None, torch.zeros((8, 1)),
                                  route="pallas")
 
 
@@ -702,7 +703,7 @@ def group_frame(testscene_pair):
     torch.set_num_threads(1)
     try:
         cfg = T.RenderConfig.tuned(xres=90, yres=60)
-        tracer = T.WavefrontTracer(ct, cfg, route=TI.GROUPS)
+        tracer = T.WavefrontTracer(ct, cfg, route=GROUPS)
         renderer = T.Renderer(tracer, cam, cfg)
         before = (GK.dense_select.launches, GK.bvh_select.launches,
                   GK.dense_select_plain.calls, GK.bvh_select_plain.calls,

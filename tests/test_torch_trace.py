@@ -28,7 +28,7 @@ import torch
 import glome_tpu as G
 import glome_tpu_torch as T
 from glome_tpu.trace import Tracer as JTracer
-from glome_tpu_torch import intersect as TI
+from glome_tpu_torch.intersect import GROUPS, MEGA
 from glome_tpu_torch import megakernel as MK
 from glome_tpu_torch.io import quantize, read_png
 from glome_tpu_torch.render import pixel_coords, primary_rays
@@ -39,7 +39,7 @@ from glome_tpu_torch.trace import (compact_indices, compact_ranks, gather,
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                       "testscene_90x60_cpu.png")
-ROUTES = (TI.MEGA, TI.GROUPS)
+ROUTES = (MEGA, GROUPS)
 COLOR_ATOL = 5e-5
 
 
@@ -58,7 +58,7 @@ def _rays(data):
     return o, d
 
 
-def _both(make, lights_of, rays, maxdepth=3, route=TI.MEGA, **cfg_kw):
+def _both(make, lights_of, rays, maxdepth=3, route=MEGA, **cfg_kw):
     """The same scene and rays through glome_tpu's Tracer and the port's:
     (jax TraceResult as numpy dict, port TraceResult, port tracer)."""
     cj = G.compile_scene(make(G), lights_of(G))
