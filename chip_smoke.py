@@ -10,7 +10,8 @@ the hand-written CUDA kernels K1 (csrc/mega_select.cu), K2
 (csrc/block_select.cu) and K3 (csrc/mesh_block_select.cu) on the
 megakernel route, and K4 (csrc/dense_select.cu) and K5
 (csrc/bvh_select.cu) on the pass-per-group route
-(WavefrontTracer(route=intersect.GROUPS)), and the card microbenchmarks
+(WavefrontTracer(route=intersect.GROUPS), on TestScene and on the 100k
+mesh), and the card microbenchmarks
 M1 (csrc/micro_prims.cu) and M2 (csrc/micro_kwide.cu) through their
 tools' entry points (python -m glome_tpu_torch.tools.micro_prims /
 micro_kwide), and checks them in phases:
@@ -18,7 +19,9 @@ micro_kwide), and checks them in phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. build: all seven libraries (K1-K5, M1, M2) from the sources in this
      checkout, one nvcc each, all started together (build seconds, ptxas
-     register and spill counts);
+     register and spill counts), and the native BVH builder
+     (glome_tpu_torch/native/bvh_builder.cpp, g++; its version and build
+     seconds);
   3. K1 against mega_select_plain on the card, on the all-phase-kinds
      scene, the CSG scene, TestScene's 345,600 primary rays (L0) and the
      200-sphere chain (phasescene.chain_scene: a bvh2 tree of depth 47,
@@ -160,7 +163,21 @@ micro_kwide), and checks them in phases:
      |diff| <= 1e-5, every 8-bit value equal; 6 K1 launches per rank),
      and one sharded_train_step_fn step of the two-prim scene of
      glome_tpu's tests/test_sharding.py against the single-process
-     full-batch step (rtol 1e-5; the loss equal on both ranks).
+     full-batch step (rtol 1e-5; the loss equal on both ranks);
+ 29. mesh_scene(100_000) at 1920x1080, depth 1, on the pass-per-group
+     route (WavefrontTracer(route=GROUPS)): the ground plane through K4,
+     the 99,904 smooth triangles through K5 over the native builder's
+     skip-link tree.  The set-up apart on the host clock (compile_scene,
+     the group's bounds, the native build_bvh, the numpy builder once on
+     the same bounds with its tables bit-equal to the native ones,
+     skip_link_pairs + node_records, the records' upload); the frames
+     with and without cast_shadows (K4 1 and K5 1 per batch, no K1-K3
+     launch, no plain call, zero overflow, within the canaries of phase
+     9's megakernel-route frame of the same scene), ms per frame by CUDA
+     events, mean of 3 after a warm-up; K5 launched on all L0 rays and
+     all their shadow rays and equal to its plain version on every lane
+     of a 65,536-lane subset of each, winners included; K5's ms per
+     launch on the L0 batch and its bound from the tally.
 
 Kernel against plain: K2, K3 and K5 equal their plain versions on
 every lane (hit or blocked, t bit for bit, and the winner: each takes
@@ -197,6 +214,7 @@ import sys
 import tempfile
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -319,6 +337,7 @@ def main():
     from glome_tpu_torch import kernels
     from glome_tpu_torch import megakernel as MK
     from glome_tpu_torch import mesh_kernel as MSH
+    from glome_tpu_torch import native as NAT
     from glome_tpu_torch.compile import (group_accel,
                                          materialize_scene_params)
     from glome_tpu_torch.io import quantize, read_png, write_png
@@ -490,9 +509,18 @@ def main():
     # -- 2. build ----------------------------------------------------------
     def p_build():
         t0 = time.perf_counter()
-        paths = kernels.load_all()
-        print(f"  {len(paths)} nvcc runs in parallel: "
+        # the native BVH builder (g++, no fallback) beside the nvcc runs
+        with ThreadPoolExecutor(1) as pool:
+            native = pool.submit(NAT.get_lib)
+            paths = kernels.load_all()
+            native.result()
+        print(f"  {len(paths)} nvcc runs and one g++ run in parallel: "
               f"{time.perf_counter() - t0:.2f} s wall")
+        info = NAT.BUILD_INFO
+        print(f"  {os.path.relpath(info['path'], ROOT)}: "
+              f"{NAT.cxx_path()} {' '.join(NAT.CXX_FLAGS)}, "
+              f"{info['seconds']:.2f} s; "
+              f"{info['version'].splitlines()[0]}")
         for name, path in zip(kernel_fns, paths):
             # K1-K5 come first, in kernel_fns order (kernels.LIBRARIES)
             entries[name]["ptxas"] = ptxas_figures(
@@ -887,6 +915,8 @@ def main():
     pcfg = T.RenderConfig(xres=PLAIN_RES[0], yres=PLAIN_RES[1], maxdepth=1)
     step = MESH_RES[0] // PLAIN_RES[0]
 
+    mesh_imgs = {}
+
     def mesh_frame(n_tris, cast_shadows, want):
         cc, garrs, _mp, c, _grp = mesh(n_tris, cast_shadows)
         path = f"mesh{n_tris // 1000}k_1080p_cast{int(cast_shadows)}"
@@ -901,6 +931,7 @@ def main():
         print(f"  {path}: rgb {tuple(img.shape)} finite {finite}, "
               f"overflow {ov}, expected launches {want}")
         write_png(os.path.join(out_dir, f"{path}_gpu.png"), img)
+        mesh_imgs[path] = quantize(img)
         rplain = T.Renderer(T.WavefrontTracer(cc, pcfg, select=MK.PLAIN), c,
                             pcfg)
         reset_counts()
@@ -2068,6 +2099,153 @@ def main():
     phase("28 ray sharding: 2 gloo ranks on one card", p_sharded)
     shutil.rmtree(app_dir, ignore_errors=True)
 
+    # -- 29. mesh100k on the pass-per-group route ----------------------------
+    def p_mesh_groups():
+        from glome_tpu_torch import accel as A
+        e = entries["bvh_select"]
+        ok = True
+        # the set-up apart, on the host clock
+        split = {}
+        t0 = time.perf_counter()
+        s, lt, c = mesh_scene(100_000, cast_shadows=True)
+        cc = T.compile_scene(s, lt)
+        split["compile_scene_s"] = time.perf_counter() - t0
+        sc = cc.scenes[0]
+        gi = next(i for i, g in enumerate(sc.groups) if g.accel_eligible)
+        g = sc.groups[gi]
+        t0 = time.perf_counter()
+        bounds = A.group_bounds(g)
+        split["group_bounds_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bvh = group_accel(g)          # the native builder, cached on g
+        split["native_build_bvh_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = A.build_bvh(*bounds, native=False)
+        split["numpy_build_bvh_s"] = time.perf_counter() - t0
+        same = all(np.array_equal(getattr(bvh, k), getattr(ref, k))
+                   and getattr(bvh, k).dtype == getattr(ref, k).dtype
+                   for k in ("bmin", "bmax", "leaf_start", "leaf_count",
+                             "skip", "order"))
+        t0 = time.perf_counter()
+        pairs = A.skip_link_pairs(bvh)
+        A.node_records(pairs.bmin, pairs.bmax, pairs.left, pairs.right,
+                       pairs.leaf_start, pairs.leaf_count)
+        split["skip_link_pairs_node_records_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recs = GK.bvh_records(bvh, dev)
+        torch.cuda.synchronize()
+        split["bvh_records_upload_s"] = time.perf_counter() - t0
+        e["mesh100k_setup"] = split
+        print(f"  [{smi_line}] set-up apart (host clock): "
+              + ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in split.items()))
+        print(f"  mesh group: {g.size} {g.ptype} rows; skip-link tree "
+              f"{bvh.n_nodes} nodes; native tables bit-equal to the numpy "
+              f"builder's on this host: {same}; records of {recs.n_nodes} "
+              f"nodes, depth {recs.depth}, walk stack "
+              f"{kernels.walk_stack(recs.depth)} entries per thread")
+        ok &= same and g.size == 99_904
+        # the frames, with and without the mesh's shadows
+        garrs = T.to_torch(cc.arrays(), dev)
+        for cast_shadows in (False, True):
+            if cast_shadows:
+                fc, fa = cc, garrs
+            else:
+                fc, fa, _mp, _c, _grp = mesh(100_000, False)
+            path = f"mesh100k_1080p_groups_cast{int(cast_shadows)}"
+            tracer = T.WavefrontTracer(fc, mcfg, route=GROUPS)
+            renderer = T.Renderer(tracer, c, mcfg)
+            reset_counts()
+            t0 = time.perf_counter()
+            rgb, depth = renderer.render(fa)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            counts = read_counts(path)
+            batches = tracer.last_batches
+            ov = int(renderer.last_overflow.sum())
+            img = rgb.cpu().numpy()
+            finite = bool(np.isfinite(img).all()
+                          and torch.isfinite(depth).all().item())
+            write_png(os.path.join(out_dir, f"{path}_gpu.png"), img)
+            ms = cuda_ms(lambda: renderer.render(fa), 3)
+            e[f"{path}_ms"] = ms
+            print(f"  [{smi_line}] {path}: rgb {tuple(img.shape)} finite "
+                  f"{finite}, overflow {ov}, {batches} batches (expected "
+                  f"K4 1 and K5 1 per batch); first frame {first:.3f} s "
+                  f"host wall; {ms:.3f} ms per frame (CUDA events, mean of "
+                  f"3 after warm-up), "
+                  f"{MESH_RES[0] * MESH_RES[1] / ms / 1e3:.4f} primary "
+                  f"Mrays/s")
+            mega_path = f"mesh100k_1080p_cast{int(cast_shadows)}"
+            if mega_path in mesh_imgs:
+                ok &= canaries_ok(f"vs phase 9's {mega_path} (K1 + K2)",
+                                  quantize(img), mesh_imgs[mega_path])
+            else:
+                print(f"  no phase 9 frame {mega_path} to compare")
+                ok = False
+            ok &= (finite and ov == 0 and batches == 2
+                   and img.shape == (MESH_RES[1], MESH_RES[0], 3)
+                   and counts["dense_select"] == batches
+                   and counts["bvh_select"] == batches
+                   and counts["mega_select"] == 0
+                   and counts["block_select"] == 0
+                   and counts["mesh_block_select"] == 0
+                   and counts["plain"] == 0)
+        # K5 on all L0 rays and all their shadow rays, as the frame
+        # launches it; the plain version, brute force over every row, on
+        # an evenly spread subset of each (one call, timed by CUDA events)
+        mg = dict(garrs)
+        mg["scenes"] = [materialize_scene_params(sc, garrs["scenes"][0])]
+        Q, t1, sh = mesh_l0(100_000)
+        sub = {}
+        for shadow, rays, seed in ((False, Q, t1), (True, sh, sh[6])):
+            fn, plain, args, _kw = group_args(cc, mg, 0, gi, "bvh", shadow)
+            ix = subset(rays.shape[1])
+            rs, ss = sub_rays(rays, seed)
+            k = fn(*args, rays, seed, shadow=shadow)
+            torch.cuda.synchronize()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            p = plain(*args, rs, ss, shadow=shadow)
+            ev1.record()
+            torch.cuda.synchronize()
+            sub[shadow] = (rs, ss, ev0.elapsed_time(ev1))
+            mode = "shadow" if shadow else "intersect"
+            good, err = compare(f"mesh100k 1080p L0 {mode} on the group "
+                                f"route (full launch, {SUBSET}-lane subset "
+                                f"checked; plain {sub[shadow][2]:.1f} ms)",
+                                as_np([a[ix] for a in k]), as_np(p), shadow,
+                                exact=True)
+            ok &= good
+            if not shadow:
+                e["mesh100k_max_abs_err"] = err
+        # K5's time and bound on the L0 batch; on the L0 subset beside the
+        # plain version's time there
+        fn, plain, args, _kw = group_args(cc, mg, 0, gi, "bvh", False)
+        rs, ss, pms = sub[False]
+        before = clocks()
+        kms = cuda_ms(lambda: fn(*args, Q, t1), 10)
+        ksub = cuda_ms(lambda: fn(*args, rs, ss), 10)
+        e.update(mesh100k_ms=kms, mesh100k_plain_ms=pms,
+                 mesh100k_rays=Q.shape[1], mesh100k_plain_rays=SUBSET,
+                 mesh100k_subset_ms=ksub,
+                 mesh100k_smem_bytes=kernels.walk_stack(recs.depth)
+                 * kernels.WALK_THREADS * kernels.STACK_ENTRY_BYTES)
+        print(f"  [{smi_line}] bvh_select on mesh100k L0: {kms:.4f} "
+              f"ms/launch ({Q.shape[1]} rays, CUDA events); on the "
+              f"{SUBSET}-ray subset {ksub:.4f} ms vs plain {pms:.4f} ms "
+              f"({pms / ksub:.1f}x) (clocks before: {before})")
+        tally = torch.zeros((2, Q.shape[1]), dtype=torch.int32, device=dev)
+        fn(*args, Q, t1, tally=tally)
+        tabs = [a for a in args if torch.is_tensor(a)] + [
+            args[-1].cf, args[-1].desc, recs.nodes]
+        bound("bvh_select", 28 * Q.shape[1], 8 * Q.shape[1],
+              sum(t.numel() * t.element_size() for t in tabs), tally.cpu(),
+              TRI_FLOPS, prefix="mesh100k_")
+        return ok
+    phase("29 mesh100k 1920x1080 depth 1 on the group route",
+          p_mesh_groups)
+
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):
         print("jax, glome_tpu or tools was imported")
@@ -2084,6 +2262,8 @@ def main():
                        *((k, k.split(".")[0] + "_T256")
                          for k in micro_kernels)):
         entries[name]["launches"] = entries[name]["launches_by_path"][path]
+    entries["bvh_select"]["mesh100k_launches"] = entries["bvh_select"][
+        "launches_by_path"]["mesh100k_1080p_groups_cast1"]
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Acceleration structures: host-side cost-based BVH builds (numpy).
+"""Acceleration structures: host-side cost-based BVH builds.
 
 The reference builds a BIH with a 4-way candidate-split cost search
 (Bih.hs:211-285: midpoint splits on x/y/z plus a big/small-object
@@ -19,9 +19,9 @@ node_records lays a binary tree out as the child-pair records the CUDA
 near-first walks read (K1, K2, K3, K5; csrc/bvh_walk.cuh): a build_bvh2
 tree, or for K5 a build_bvh tree made binary by skip_link_pairs.
 
-The builders are pure numpy; glome_tpu's C++ builder
-(glome_tpu/native/bvh_builder.cpp) emits identical tables on the
-scenes the tests cover (tests/test_torch_host.py compares the plans).
+build_bvh runs the C++ builder of native/ by default; its numpy builder
+(native=False) is the plain version, and the two emit bit-equal tables
+(tests/test_torch_native.py).  build_bvh2 is numpy.
 """
 
 from __future__ import annotations
@@ -232,9 +232,20 @@ def build_bvh2(bmin: np.ndarray, bmax: np.ndarray,
 
 
 def build_bvh(bmin: np.ndarray, bmax: np.ndarray,
-              leaf_max: int = LEAF_MAX) -> BvhFlat:
+              leaf_max: int = LEAF_MAX, native: bool = True) -> BvhFlat:
     """Cost-based build with the reference's candidate-split search
-    (Bih.hs:211-285), emitted as a flattened skip-link array tree."""
+    (Bih.hs:211-285), emitted as a flattened skip-link array tree.
+
+    native (the default): the C++ builder (native/bvh_builder.cpp), which
+    raises RuntimeError where it cannot be built or run.  native=False:
+    this numpy builder, its plain version; the two give bit-equal tables
+    on float64 boxes (tests/test_torch_native.py)."""
+    if native:
+        from .native import build_bvh_native
+        nb_min, nb_max, ls, lc, sk, order = build_bvh_native(bmin, bmax,
+                                                             leaf_max)
+        return BvhFlat(bmin=nb_min, bmax=nb_max, leaf_start=ls,
+                       leaf_count=lc, skip=sk, order=order)
     P = bmin.shape[0]
     mids = (bmin + bmax) * 0.5
     sa = _bbsa(bmin, bmax)
@@ -330,7 +341,13 @@ def skip_link_pairs(bvh: BvhFlat) -> Bvh2:
     the chain too), and the node that ends the chain.  Its depth grows
     with the log of the chain's length, where a node-by-node conversion
     would be as deep as the chain is long.  Node 0 is the root; `depth`
-    counts the root as 1."""
+    counts the root as 1.
+
+    Nodes are numbered as a near-first walk makes them: the root 0, then
+    the two children of the k-th internal node in preorder 1 + 2k and
+    2 + 2k.  The skip-link table lists its nodes in preorder, and a
+    chain-free tree maps node for node, so the conversion is whole-array
+    work; only the links of chains, rare and short, go through Python."""
     if bvh.n_nodes == 0:
         raise ValueError("an empty group has no tree to convert")
     lo = np.asarray(bvh.bmin, np.float32)
@@ -338,51 +355,118 @@ def skip_link_pairs(bvh: BvhFlat) -> Bvh2:
     skip = np.asarray(bvh.skip, np.int64)
     start = np.asarray(bvh.leaf_start, np.int64)
     count = np.asarray(bvh.leaf_count, np.int64)
-    nb_min, nb_max, left, right, first, rows = [], [], [], [], [], []
+    M = len(skip)
+    link = (count > 0) & (skip != np.arange(M) + 1)
+    # the output tree in preorder: elements (kind, first input node, last
+    # input node): NODE n, an input node that is no link; LINK c, a
+    # link's own rows; SPAN a..b, the subtree over the chain items a..b
+    # (links, then the node that ends the chain), which for a whole chain
+    # stands for its first link.  The links of each chain are replaced by
+    # its subtree in preorder, less its last item, the chain's end node,
+    # which keeps its own place.
+    NODE, LINK, SPAN = 0, 1, 2
+    heads = np.nonzero(link & ~np.concatenate([[False], link[:-1]]))[0]
+    kind_parts, a_parts, b_parts = [], [], []
+    edges = []        # (parent element, child element, side) in chains
+    span_of = {}      # chain head -> the element of its whole-chain SPAN
+    prev = n_elems = 0
 
-    def new(items):
-        """A node for the items, (link, n): the rows of the chain link n
-        alone, or (node, n): the subtree at n; its box bounds them all."""
-        ns = [n for _kind, n in items]
-        nb_min.append(lo[ns].min(axis=0))
-        nb_max.append(hi[ns].max(axis=0))
-        for a in (left, right, first):
-            a.append(-1)
-        rows.append(0)
-        return len(rows) - 1
+    def nodes(lo_n, hi_n):
+        nonlocal n_elems
+        kind_parts.append(np.full(hi_n - lo_n, NODE))
+        a_parts.append(np.arange(lo_n, hi_n))
+        b_parts.append(np.arange(lo_n, hi_n))
+        n_elems += hi_n - lo_n
 
-    LINK, NODE = 0, 1
-    work = [(new([(NODE, 0)]), [(NODE, 0)], 1)]
-    depth = 1
-    while work:
-        me, items, level = work.pop()
-        depth = max(depth, level)
-        if len(items) == 1:
-            kind, n = items[0]
-            if kind == LINK or (count[n] > 0 and skip[n] == n + 1):
-                first[me], rows[me] = int(start[n]), int(count[n])
-                continue
-            if count[n] == 0:
-                items = [(NODE, n + 1), (NODE, int(skip[n + 1]))]
+    for c0 in heads.tolist():
+        end = c0
+        while link[end]:
+            end += 1
+        nodes(prev, c0)
+        # the balanced subtree over items c0..end, in preorder; items[i]
+        # is input node c0 + i, the last one the chain's end node
+        toks, work = [], [(c0, end, None, 0)]
+        while work:
+            ia, ib, parent, side = work.pop()
+            me = n_elems + len(toks)
+            if ia == ib:
+                toks.append((NODE if ia == end else LINK, ia, ia))
             else:
-                # a chain: its links, then the node that ends it
-                items, c = [], n
-                while count[c] > 0 and skip[c] != c + 1:
-                    items.append((LINK, c))
-                    c += 1
-                items.append((NODE, c))
-        h = len(items) // 2
-        left[me], right[me] = new(items[:h]), new(items[h:])
-        work.append((right[me], items[h:], level + 1))
-        work.append((left[me], items[:h], level + 1))
-    n_out = len(rows)
-    return Bvh2(bmin=np.asarray(nb_min, np.float32).reshape(n_out, 3),
-                bmax=np.asarray(nb_max, np.float32).reshape(n_out, 3),
-                left=np.asarray(left, np.int32),
-                right=np.asarray(right, np.int32),
-                leaf_start=np.asarray(first, np.int32),
-                leaf_count=np.asarray(rows, np.int32),
-                order=np.asarray(bvh.order, np.int32), depth=depth)
+                toks.append((SPAN, ia, ib))
+                h = (ib - ia + 1) // 2
+                work.append((ia + h, ib, me, 1))
+                work.append((ia, ia + h - 1, me, 0))
+            if parent is not None:
+                edges.append((parent, me, side))
+        # the end node, last in preorder, keeps its place: the element
+        # numbered for it is the first of the next run of nodes
+        span_of[c0] = n_elems
+        kind_parts.append(np.array([k for k, _a, _b in toks[:-1]]))
+        a_parts.append(np.array([x for _k, x, _b in toks[:-1]]))
+        b_parts.append(np.array([x for _k, _a, x in toks[:-1]]))
+        n_elems += len(toks) - 1
+        prev = end
+    nodes(prev, M)
+    kind = np.concatenate(kind_parts).astype(np.int64)
+    ea = np.concatenate(a_parts).astype(np.int64)
+    eb = np.concatenate(b_parts).astype(np.int64)
+    n_out = len(kind)
+    # each input node's element: its NODE element, for a chain head its
+    # whole-chain SPAN
+    is_node = kind == NODE
+    rep = np.zeros(M, np.int64)
+    rep[ea[is_node]] = np.nonzero(is_node)[0]
+    for c0, e in span_of.items():
+        rep[c0] = e
+    inner_elem = (is_node & (count[ea] == 0)) | (kind == SPAN)
+    k = np.cumsum(inner_elem) - inner_elem
+    par, child, side = [], [], []
+    inner_in = np.nonzero(~link & (count == 0))[0]
+    par.append(rep[inner_in])
+    child.append(rep[inner_in + 1])
+    side.append(np.zeros(len(inner_in), np.int64))
+    par.append(rep[inner_in])
+    child.append(rep[skip[inner_in + 1]])
+    side.append(np.ones(len(inner_in), np.int64))
+    if edges:
+        e = np.asarray(edges, np.int64)
+        par.append(e[:, 0])
+        child.append(e[:, 1])
+        side.append(e[:, 2])
+    par, child, side = (np.concatenate(x) for x in (par, child, side))
+    out_id = np.zeros(n_out, np.int64)
+    out_id[child] = 1 + 2 * k[par] + side
+    left = np.full(n_out, -1, np.int64)
+    right = np.full(n_out, -1, np.int64)
+    left[out_id[par[side == 0]]] = out_id[child[side == 0]]
+    right[out_id[par[side == 1]]] = out_id[child[side == 1]]
+    # boxes: a node's or a link's own; a span's the least box over its
+    # items (for a whole chain its first link's, which bounds the rest)
+    nb_min = np.empty((n_out, 3), np.float32)
+    nb_max = np.empty((n_out, 3), np.float32)
+    nb_min[out_id] = lo[ea]
+    nb_max[out_id] = hi[ea]
+    for i in np.nonzero(kind == SPAN)[0]:
+        nb_min[out_id[i]] = lo[ea[i]:eb[i] + 1].min(axis=0)
+        nb_max[out_id[i]] = hi[ea[i]:eb[i] + 1].max(axis=0)
+    leaf = ~inner_elem
+    first = np.full(n_out, -1, np.int64)
+    rows = np.zeros(n_out, np.int64)
+    first[out_id[leaf]] = start[ea[leaf]]
+    rows[out_id[leaf]] = count[ea[leaf]]
+    # levels, root 1: one whole-array step per level
+    level = np.ones(n_out, np.int64)
+    frontier = np.zeros(1 if left[0] >= 0 else 0, np.int64)
+    while len(frontier):
+        kids = np.concatenate([left[frontier], right[frontier]])
+        level[kids] = np.concatenate([level[frontier]] * 2) + 1
+        frontier = kids[left[kids] >= 0]
+    return Bvh2(bmin=nb_min, bmax=nb_max, left=left.astype(np.int32),
+                right=right.astype(np.int32),
+                leaf_start=first.astype(np.int32),
+                leaf_count=rows.astype(np.int32),
+                order=np.asarray(bvh.order, np.int32),
+                depth=int(level.max()))
 
 
 def node_records(bmin: np.ndarray, bmax: np.ndarray, left: np.ndarray,

@@ -925,3 +925,13 @@ def shadow_query_table(compiled, arrays, table, select: str = MK.KERNELS,
     o, d, tmax, sid = _unpack(table)
     return shadow_query_multi(compiled, arrays, o, d, sid, tmax,
                               select=select)
+
+
+def shadow_query_multi_rays(compiled, arrays, rays,
+                            select: str = MK.KERNELS, route: str = MEGA):
+    """glome_tpu's plane-table occlusion entry: `rays` is the (8, W)
+    float32 table [ox,oy,oz,dx,dy,dz,tmax,sid] with dead lanes at tmax 0
+    / sid -1; returns (W,) bool blocked.  The port's ray tables are these
+    planes already, so it is shadow_query_table."""
+    return shadow_query_table(compiled, arrays, rays, select=select,
+                              route=route)

@@ -502,6 +502,37 @@ def test_bvh_kernel_breaks_ties_by_row(dev, case, shadow):
         assert int((at_t.sum(dim=1) > 1).sum()) > 1000
 
 
+@pytest.mark.parametrize("shadow", [False, True])
+def test_bvh_kernel_on_a_mesh_group(dev, shadow):
+    """K5 on a mesh group: mesh_scene(1500, cast_shadows=True) compiled
+    with accel_min_size=64, so its 1,458 smooth triangles (expanded from
+    vertex rows) are one K5 group over the native builder's tree, the
+    rows in leaf order.  K5 equals its plain version on every lane,
+    winners included, on rays into the mesh from around it."""
+    from glome_tpu_torch import group_kernels as GK
+    from glome_tpu_torch.compile import materialize_scene_params
+    from glome_tpu_torch.intersect import bvh_args
+    from glome_tpu_torch.scenes import mesh_scene
+    st, lt, _cam = mesh_scene(1500, cast_shadows=True)
+    compiled = T.compile_scene(st, lt, accel_min_size=64)
+    sc = compiled.scenes[0]
+    gi = next(i for i, g in enumerate(sc.groups) if g.accel_eligible)
+    assert sc.groups[gi].ptype == "trianglenorm"
+    garrs = materialize_scene_params(
+        sc, T.to_torch(compiled.arrays(), dev)["scenes"][0])
+    args, _order = bvh_args(sc, garrs, gi, shadow, dev)
+    rng = np.random.RandomState(6 if shadow else 7)
+    o = rng.uniform(-3, 3, (8192, 3)).astype(np.float32)
+    d = rng.uniform(-0.8, 0.8, (8192, 3)) - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    rays, seed = _rays_of(dev, o, d, 4.0 if shadow else T.INFINITY)
+    before = GK.bvh_select.launches
+    k = GK.bvh_select(*args, rays, seed, shadow)
+    p = GK.bvh_select_plain(*args, rays, seed, shadow)
+    assert GK.bvh_select.launches == before + 1
+    _assert_kernel_equals_plain(k, p, shadow)
+
+
 def test_group_wrappers_reject_bad_inputs(dev):
     from glome_tpu_torch import group_kernels as GK
     sc, gi, garrs = _dense_case(dev, "transformed")
