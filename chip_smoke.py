@@ -177,7 +177,27 @@ micro_kwide), and checks them in phases:
      events, mean of 3 after a warm-up; K5 launched on all L0 rays and
      all their shadow rays and equal to its plain version on every lane
      of a 65,536-lane subset of each, winners included; K5's ms per
-     launch on the L0 batch and its bound from the tally.
+     launch on the L0 batch and its bound from the tally;
+ 30. the frame-profiling tool (glome_tpu_torch/tools/profile_frame.py,
+     python -m glome_tpu_torch.tools.profile_frame) on six workloads:
+     the TestScene 720x480 depth-3 frame on each route, the mesh100k
+     1080p self-shadowing frame on each route, the 720x480 AA frame and
+     one config 5 step at 180x120.  Each is timed unprofiled (CUDA
+     events, mean of 3 after a warm-up), then run once with every stage
+     wrapped and profiled, and its stage table printed.  Gates: every
+     stage the path reaches fired; the result equals the warm-up's
+     without the wrappers (frames bit for bit; the config 5 step's loss
+     equal and its updated row within 1e-6 relative); the K1-K5
+     launches summed over the stages equal the wrappers' counters and
+     the path's counts (6 K1 per TestScene frame; 7 K4 + 2 K5 per batch
+     of the group-route frame; 2 K1 + 2 K2 per mesh frame on the
+     megakernel route; 1 K4 + 1 K5 per batch on the group route; 30 K1
+     per AA frame; 6 K1 per config 5 step), no plain call; the rows'
+     device ms, with "(outside any stage)", sum to the profiler's
+     device time within 1%.
+
+Phases 10, 16 and 22 take their profiled frame and per-launch
+host/device split from the same tool (profile_kernels, launch_split).
 
 Kernel against plain: K2, K3 and K5 equal their plain versions on
 every lane (hit or blocked, t bit for bit, and the winner: each takes
@@ -333,7 +353,7 @@ def main():
     import glome_tpu_torch as T
     from glome_tpu_torch import block_kernel as BK
     from glome_tpu_torch import group_kernels as GK
-    from glome_tpu_torch.intersect import GROUPS, bvh_args, dense_args
+    from glome_tpu_torch.intersect import GROUPS, MEGA, bvh_args, dense_args
     from glome_tpu_torch import kernels
     from glome_tpu_torch import megakernel as MK
     from glome_tpu_torch import mesh_kernel as MSH
@@ -346,6 +366,7 @@ def main():
     from glome_tpu_torch.tools import kernel_ab as KAB
     from glome_tpu_torch.tools import micro_kwide as MKW
     from glome_tpu_torch.tools import micro_prims as MPR
+    from glome_tpu_torch.tools import profile_frame as PF
     from glome_tpu_torch.tools.device_time import device_time
     from glome_tpu_torch.render import camera
     from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
@@ -969,48 +990,6 @@ def main():
     frames = {}
     device_share = {}
 
-    def profile_frame(render, names=("block_select_kernel",), top=None):
-        """(host wall ms, device busy ms, {kernel name: ms}) of one frame
-        under torch.profiler for the named kernels (None where it saw no
-        device time); with `top`, also prints the device kernels that
-        took the most time."""
-        from torch.profiler import ProfilerActivity, profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            render()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        spans, per, by_name = [], dict.fromkeys(names, 0.0), {}
-        for ev in prof.events():
-            if getattr(ev, "device_type", None) != \
-                    torch.autograd.DeviceType.CUDA:
-                continue
-            a, b = ev.time_range.start, ev.time_range.end
-            spans.append((a, b))
-            # "void block_select_kernel<false>(float const*, ...)"
-            base = ev.name.split("<")[0].split("(")[0].split()[-1]
-            if base in per:
-                per[base] += (b - a) / 1e3
-            tot, cnt = by_name.get(ev.name[:90], (0.0, 0))
-            by_name[ev.name[:90]] = (tot + (b - a) / 1e3, cnt + 1)
-        for nm, (ms, cnt) in sorted(by_name.items(),
-                                    key=lambda kv: -kv[1][0])[:top or 0]:
-            print(f"    {ms:9.3f} ms in {cnt:6d} launches: {nm}")
-        if not spans:
-            return wall, None, None
-        spans.sort()
-        busy, cur_a, cur_b = 0.0, spans[0][0], spans[0][1]
-        for a, b in spans[1:]:
-            if a > cur_b:
-                busy += cur_b - cur_a
-                cur_a, cur_b = a, b
-            else:
-                cur_b = max(cur_b, b)
-        busy += cur_b - cur_a
-        return wall, busy / 1e3, per
-
     def p_mesh_timing():
         n_rays = MESH_RES[0] * MESH_RES[1]
         print(f"  clocks at the start: {clocks()}")
@@ -1024,8 +1003,8 @@ def main():
                   f"mean of 3 after warm-up), {n_rays / ms / 1e3:.4f} "
                   f"primary Mrays/s")
             if cast_shadows:
-                wall, busy, per = profile_frame(
-                    lambda: renderer.render(garrs))
+                wall, busy, per = PF.profile_kernels(
+                    lambda: renderer.render(garrs), ("block_select_kernel",))
                 if busy is None:
                     print("  profiler: no device time (device busy share "
                           "not measured)")
@@ -1444,32 +1423,6 @@ def main():
     phase("15 TestScene group-route plain frame 180x120", p_group_plain)
 
     # -- 16. group-route timing ----------------------------------------------
-    def launch_split(fn, name, reps=10):
-        """(host ms per wrapper call, device ms per recorded launch of the
-        kernel `name` under torch.profiler, launches recorded) of `reps`
-        calls of fn: CUDA events around back-to-back launches read the
-        host's issue time instead of the kernel's when the wrapper is the
-        slower of the two."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        host = (time.perf_counter() - t0) * 1e3 / reps
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        spans = [ev.time_range.end - ev.time_range.start
-                 for ev in prof.events()
-                 if getattr(ev, "device_type", None)
-                 == torch.autograd.DeviceType.CUDA
-                 and ev.name.split("<")[0].split("(")[0].split()[-1] == name]
-        return host, sum(spans) / 1e3 / max(len(spans), 1), len(spans)
-
     def p_group_timing():
         renderer = T.Renderer(T.WavefrontTracer(compiled, cfg,
                                                 route=GROUPS), cam, cfg)
@@ -1486,7 +1439,7 @@ def main():
             before = clocks()
             kms = cuda_ms(lambda: fn(*args, Q0, seed, **kw), 10)
             pms = cuda_ms(lambda: plain(*args, Q0, seed, **kw), 1)
-            host, dev_ms, rec = launch_split(
+            host, dev_ms, rec = PF.launch_split(
                 lambda: fn(*args, Q0, seed, **kw), f"{name}_kernel")
             print(f"  [{smi_line}] {name} on TestScene "
                   f"{group_label(compiled, 0, gi)} L0 ({Q0.shape[1]} rays): "
@@ -1511,11 +1464,11 @@ def main():
                 (f"block_select on the mesh100k {SUBSET}-ray subset",
                  lambda: BK.block_select(*k2a, rs, ss, False),
                  "block_select_kernel")):
-            host, dev_ms, rec = launch_split(fn, kname)
+            host, dev_ms, rec = PF.launch_split(fn, kname)
             print(f"  [{smi_line}] {label}: {dev_ms:.4f} ms device time per "
                   f"launch (profiler, {rec} of 10 launches recorded), "
                   f"{host:.4f} ms host per wrapper call")
-        wall, busy, per = profile_frame(
+        wall, busy, per = PF.profile_kernels(
             lambda: renderer.render(arrays),
             ("dense_select_kernel", "bvh_select_kernel"), top=8)
         if busy is None:
@@ -1818,8 +1771,8 @@ def main():
                 params, o5, d5, target).backward()
         soft_ms = cuda_ms(lambda: fwd_bwd(1e-2), 3)
         hard_ms = cuda_ms(lambda: fwd_bwd(0.0), 3)
-        wall, busy, per = profile_frame(lambda: fwd_bwd(1e-2),
-                                        ("mega_select_kernel",), top=8)
+        wall, busy, per = PF.profile_kernels(lambda: fwd_bwd(1e-2),
+                                             ("mega_select_kernel",), top=8)
         k1 = per["mega_select_kernel"] if per else float("nan")
         print(f"  [{smi_line}] forward + backward: {soft_ms:.3f} ms with the "
               f"soft pass, {hard_ms:.3f} ms without it (the soft pass "
@@ -2245,6 +2198,72 @@ def main():
         return ok
     phase("29 mesh100k 1920x1080 depth 1 on the group route",
           p_mesh_groups)
+
+    # -- 30. the frame-profiling tool on every path ---------------------------
+    def p_profile():
+        mc, ma, _mp, mcam, _grp = mesh(100_000, True)
+        mk = ("mega_select", "block_select", "mesh_block_select",
+              "dense_select", "bvh_select")
+        # (key, workload, K1-K5 launches the path makes per run, from the
+        # tracer's batch count where that is per batch)
+        work = (
+            ("testscene_mega", PF.frame_workload(
+                "TestScene 720x480 depth 3, megakernel route", compiled,
+                arrays, cam, cfg, MEGA),
+             lambda b: {"K1": 2 * cfg.maxdepth}),
+            ("testscene_groups", PF.frame_workload(
+                "TestScene 720x480 depth 3, group route", compiled, arrays,
+                cam, cfg, GROUPS),
+             lambda b: {"K4": n_dense * b, "K5": n_bvh * b}),
+            ("mesh100k_shadows_mega", PF.frame_workload(
+                "mesh100k 1920x1080 depth 1 self-shadowing, megakernel "
+                "route", mc, ma, mcam, mcfg, MEGA),
+             lambda b: {"K1": 2, "K2": 2}),
+            ("mesh100k_shadows_groups", PF.frame_workload(
+                "mesh100k 1920x1080 depth 1 self-shadowing, group route", mc,
+                ma, mcam, mcfg, GROUPS),
+             lambda b: {"K4": b, "K5": b}),
+            ("aa_testscene", PF.aa_workload(
+                "AA TestScene 720x480 depth 3, megakernel route", compiled,
+                arrays, cam, cfg, MEGA),
+             lambda b: {"K1": 30}),
+            ("config5_step", PF.config5_workload(compiled, arrays, cam, 180,
+                                                 120),
+             lambda b: {"K1": 6}))
+        ok = True
+        for key, w, want_fn in work:
+            reset_counts()
+            rep = PF.profile(w, dev, smi_line)
+            read_counts(f"profile_{key}")
+            sp = rep.split
+            want = want_fn(w.tracer.last_batches)
+            stage_sum = {f"K{i + 1}": sum(r.counts[f"K{i + 1}"]
+                                          for r in sp.stage_rows())
+                         for i in range(len(mk))}
+            prof_sum = {k: sum(r.profiled_launches().get(k, 0)
+                               for r in sp.rows) for k in stage_sum}
+            plain = sum(v for k, v in sp.counts.items() if "plain" in k)
+            launches_ok = all(stage_sum[k] == sp.counts[k] == want.get(k, 0)
+                              for k in stage_sum) and plain == 0
+            rows_dev = sum(r.device_ms for r in sp.rows)
+            part_ok = (sp.device_ms is not None and sp.device_ms > 0
+                       and abs(rows_dev - sp.device_ms)
+                       <= 0.01 * sp.device_ms)
+            print(f"  [{smi_line}] {w.name}: K1-K5 launches summed over the "
+                  f"stages {stage_sum}, the wrappers' counters "
+                  f"{ {k: sp.counts[k] for k in stage_sum} }, expected "
+                  f"{want} ({w.tracer.last_batches} batches in the last "
+                  f"trace), the profiler recorded {prof_sum}, plain calls "
+                  f"{plain} -> {'ok' if launches_ok else 'FAIL'}; rows' "
+                  f"device ms {rows_dev:.3f} of the profiler's "
+                  f"{sp.device_ms or 0.0:.3f} -> "
+                  f"{'ok' if part_ok else 'FAIL'}; stages fired: every "
+                  f"stage of the path {not rep.missing}; the same result "
+                  f"as without the wrappers: {rep.same}")
+            ok &= (launches_ok and part_ok and rep.same and not rep.missing)
+        return ok
+    phase("30 the frame-profiling tool (python -m "
+          "glome_tpu_torch.tools.profile_frame) on every path", p_profile)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

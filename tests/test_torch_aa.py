@@ -148,3 +148,79 @@ def test_tmax_zero_lanes_are_misses(tracer_cls, route):
                                   full.color[live].numpy())
     assert bool((cut.t[~live] == T.INFINITY).all())
     assert bool((cut.color[~live] == 0).all())
+
+
+@pytest.mark.slow
+def test_config5_first_loss_gap_is_the_reference_aa_caps():
+    """Config 5's first loss reads 0.0010598 on the card against the TPU
+    run's 0.0020819 (out/config5/config5_result.json).  At 180x120,
+    RenderConfig.tuned's aa_caps make glome_tpu drop rays in passes 4
+    and 5 (those pixels keep their interpolated or averaged values);
+    the port's queues are exact.  With caps that drop nothing (1.0 for
+    every pass and every wavefront queue) glome_tpu decides as the port
+    does: per-pass counts within 1%, the images within the golden
+    canaries (tests/test_golden.py: mean <= 3 levels, <= 0.6% of pixels
+    off by more than 64).  The port's first loss is the TPU run's
+    (within 5%) against glome_tpu's capped target and the port's own
+    (within 5%) against its exact one: the gap is the reference's caps,
+    not a port fault.  The soft render is taken in chunks of rays (each
+    ray's color depends on that ray alone).  Slow: glome_tpu's jitted
+    AA frame of the whole TestScene compiles for minutes on the CPU and
+    holds ~17 GB of host memory while it does; 13-15 minutes in all."""
+    import dataclasses
+    import json
+    from glome_tpu import scenes as jscenes
+    from glome_tpu_torch.io import quantize
+    from glome_tpu_torch.soft import SoftTracer
+    from glome_tpu_torch.tools import config5_e2e as C5
+    X, Y = 180, 120
+    solid, lights, cam = jscenes.test_scene()
+    jc = G.compile_scene(solid, lights)
+    tuned = G.RenderConfig.tuned(xres=X, yres=Y)
+    exact = dataclasses.replace(tuned, aa_caps=(1.0,) * 5,
+                                reflect_capacity=1.0, refract_capacity=1.0,
+                                warp_capacity=1.0, shadow_capacity=None)
+    ref = {}
+    for name, cfg in (("tuned", tuned), ("exact", exact)):
+        r = JAARenderer(G.WavefrontTracer(jc, cfg), cam, cfg)
+        rgb, _depth = r.render(jc.arrays())
+        ref[name] = (np.asarray(rgb), r.last_ray_counts, r.last_overflow)
+        print(f"glome_tpu {name} caps: counts {r.last_ray_counts}, "
+              f"overflow {r.last_overflow}")
+        del r
+    _c, cfg, tcam, tracer, true = C5.setup(X, Y, "cpu")
+    target, aa = C5.aa_target(tracer, tcam, cfg, true)
+    print(f"port: counts {aa.last_ray_counts}")
+    o, d = C5.pixel_rays(tracer, tcam, cfg, "cpu")
+    pert = C5.perturb(true)
+    soft = SoftTracer(tracer)
+    with torch.no_grad():
+        col = torch.cat([soft.render(pert, o[i:i + 1024], d[i:i + 1024])
+                         for i in range(0, o.shape[0], 1024)])
+
+    class Rendered:
+        def render(self, params, o, d):
+            return col
+    loss_fn = C5.coarse_to_fine_loss(Rendered(), Y, X)
+    with torch.no_grad():
+        losses = {name: float(loss_fn(pert, o, d, torch.tensor(
+            img.reshape(-1, 3)))) for name, (img, _c, _o) in ref.items()}
+        losses["port"] = float(loss_fn(pert, o, d, target))
+    with open(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "out", "config5",
+            "config5_result.json")) as f:
+        tpu = json.load(f)["losses"][0]
+    print(f"first loss against the port's target {losses['port']:.7g}, "
+          f"glome_tpu's capped target {losses['tuned']:.7g} (the TPU run: "
+          f"{tpu:.7g}), its exact target {losses['exact']:.7g}")
+    _img, _counts, over = ref["tuned"]
+    assert over["pass4"] > 0 and over["pass5"] > 0, over
+    img, counts, over = ref["exact"]
+    assert not any(over.values()), over
+    for k, n in counts.items():
+        assert abs(aa.last_ray_counts[k] - n) <= 0.01 * n, (k, counts)
+    diff = np.abs(quantize(target.reshape(Y, X, 3).numpy()).astype(int)
+                  - quantize(img).astype(int)).max(axis=-1)
+    assert diff.mean() <= 3.0 and (diff > 64).mean() <= 0.006
+    assert abs(losses["tuned"] - tpu) <= 0.05 * tpu
+    assert abs(losses["exact"] - losses["port"]) <= 0.05 * losses["port"]

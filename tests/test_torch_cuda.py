@@ -790,3 +790,30 @@ def test_sharded_render_and_step_on_card(dev, tmp_path):
         for a, b in zip(tree_leaves(r["new_arrays"]), tree_leaves(new)):
             torch.testing.assert_close(a, b.cpu(), rtol=1e-5, atol=1e-7)
     assert float(ranks[0]["loss"]) == float(ranks[1]["loss"])
+
+
+def test_profile_frame_k1_launches_by_stage(dev):
+    """One TestScene 720x480 frame split by the frame-profiling tool: the
+    K1 launches of its stages sum to 6 (one per intersect and shadow
+    batch of each of the three levels), all in the mega_select rows, and
+    equal the wrapper's own counter; the profiler's device ops are
+    partitioned by the rows; the frame equals the unwrapped one."""
+    from glome_tpu_torch.scenes import test_scene
+    from glome_tpu_torch.tools import profile_frame as PF
+    solid, lights, cam = test_scene()
+    compiled = T.compile_scene(solid, lights)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    w = PF.frame_workload("frame", compiled, arrays, cam,
+                          T.RenderConfig.tuned(), "mega")
+    ref = w.run()
+    before = MK.mega_select.launches
+    sp = PF.split(w.run, dev)
+    assert PF._same_frames(sp.result, ref)[0]
+    k1 = {r.key: r.counts["K1"] for r in sp.stage_rows() if r.counts["K1"]}
+    assert sum(k1.values()) == sp.counts["K1"] \
+        == MK.mega_select.launches - before == 6
+    assert {key[0] for key in k1} == {"mega_select"}
+    assert {key[1] for key in k1} == {0, 1, 2}
+    assert sum(r.device_ms for r in sp.rows) == pytest.approx(
+        sp.device_ms, rel=1e-6)
+    assert sp.busy_ms > 0 and not [s for s in w.stages if s not in sp.fired]
