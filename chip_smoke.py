@@ -194,7 +194,17 @@ micro_kwide), and checks them in phases:
      megakernel route; 1 K4 + 1 K5 per batch on the group route; 30 K1
      per AA frame; 6 K1 per config 5 step), no plain call; the rows'
      device ms, with "(outside any stage)", sum to the profiler's
-     device time within 1%.
+     device time within 1%;
+ 31. the benchmark report, run right after phase 2 (the libraries
+     built): python -m glome_tpu_torch.tools.bench as a subprocess, the
+     port of the repository's bench.py (the TestScene headline, the
+     mesh100k 1080p frames without and with self-shadowing and the
+     720x480 AA frame, each gated on its warm-up frame as phases 4, 9
+     and 21 gate theirs).  It must exit 0 and print one JSON line with
+     every key of bench.py's line plus backend ("cuda"), device and
+     power_limit_w, every timing positive; the line is printed here,
+     and each section's K1-K5 launches (which the bench gates) go into
+     the kernels line's launches_by_path as "bench_<section>".
 
 Phases 10, 16 and 22 take their profiled frame and per-launch
 host/device split from the same tool (profile_kernels, launch_split).
@@ -224,6 +234,7 @@ result.
     python3 chip_smoke.py
 """
 
+import ast
 import io
 import json
 import os
@@ -362,6 +373,7 @@ def main():
                                          materialize_scene_params)
     from glome_tpu_torch.io import quantize, read_png, write_png
     from glome_tpu_torch.scenes import mesh_scene, test_scene
+    from glome_tpu_torch.tools import bench as BENCH
     from glome_tpu_torch.tools import config5_e2e as C5
     from glome_tpu_torch.tools import kernel_ab as KAB
     from glome_tpu_torch.tools import micro_kwide as MKW
@@ -559,6 +571,40 @@ def main():
         return True
     if not phase("2 build", p_build):
         return 1
+
+    # -- 31. the benchmark report (a subprocess, on the built libraries) ----
+    def p_bench():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "glome_tpu_torch.tools.bench"], cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
+        for line in proc.stderr.splitlines():
+            print(f"  {line}")
+            # each section's launches of its warm-up frame, which the
+            # bench gates, go into the kernels line under "bench_<section>"
+            m = re.match(r"# (\S+): launches (\{.*?\}), plain calls", line)
+            if m:
+                counts = ast.literal_eval(m.group(2))
+                for name, k in zip(kernel_fns, BENCH.KERNELS):
+                    entries[name]["launches_by_path"][
+                        f"bench_{m.group(1)}"] = counts[k]
+        lines = proc.stdout.splitlines()
+        print(f"  exit {proc.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s, {len(lines)} stdout lines")
+        if len(lines) != 1:
+            return False
+        print(f"  [{smi_line}] bench: {lines[0]}")
+        line = json.loads(lines[0])
+        missing = [k for k in BENCH.KEYS + BENCH.DEVICE_KEYS
+                   if k not in line]
+        timed = [k for k in BENCH.KEYS
+                 if k.endswith(("_ms_per_frame", "_Mrays_per_s",
+                                "compile_s")) or k == "value"]
+        bad = [k for k in timed if k in line and not line[k] > 0]
+        print(f"  missing keys {missing}, readings <= 0 {bad}")
+        return (proc.returncode == 0 and not missing and not bad
+                and line["backend"] == "cuda" and bool(line["device"]))
+    phase("31 bench: python -m glome_tpu_torch.tools.bench", p_bench)
 
     # -- TestScene -----------------------------------------------------------
     solid, lights, cam = test_scene()
