@@ -204,7 +204,25 @@ micro_kwide), and checks them in phases:
      every key of bench.py's line plus backend ("cuda"), device and
      power_limit_w, every timing positive; the line is printed here,
      and each section's K1-K5 launches (which the bench gates) go into
-     the kernels line's launches_by_path as "bench_<section>".
+     the kernels line's launches_by_path as "bench_<section>";
+ 32. the scaling harness, run last:
+     python -m glome_tpu_torch.tools.scaling_bench as a subprocess, the
+     port of the repository's tools/scaling_bench.py (simple_scene,
+     262,144 rays, depth 3, through parallel.sharded_render_fn on 1, 2,
+     4 and 8 gloo ranks sharing the card; every rank pinned to one core,
+     then rank r on core r).  It must exit 0, its gates held (each
+     rank's gathered frame equal to the one-rank frame on every ray, 2
+     K1 launches per rank per frame (simple_scene's deeper levels are
+     empty) and no plain call, zero overflow),
+     and print one JSON payload with every key of SCALING.json plus the
+     port's own, every reading positive; each count's line (with the
+     all-gather's share) and the payload are printed here, and each
+     rank's K1 launches go into the kernels line's launches_by_path as
+     "scaling_n<N>_rank<r>".  Then K1 at the harness's shapes:
+     simple_scene's first-level batch of 262,144 rays, one rank's
+     32,768 of 8 and the first shadow batch against the plain version
+     (as phase 3 holds K1), its ms and plain ms on the 262,144 rays, and
+     its bound from the tally, as the kernels line's "scaling_*" keys.
 
 Phases 10, 16 and 22 take their profiled frame and per-launch
 host/device split from the same tool (profile_kernels, launch_split).
@@ -257,6 +275,7 @@ SUBSET = 65536
 DEVICE = ("cuda", 0)
 MESH_RES = (1920, 1080)
 PLAIN_RES = (240, 135)        # every 8th pixel of MESH_RES: the same rays
+SCALING_COUNTS = (1, 2, 4, 8)  # phase 32's rank counts
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, float32 FLOP/s
 HBM_BPS, F32_FLOPS = 3.35e12, 67e12
 TF32_FLOPS = 495e12           # dense tensor-core TF32 (the same data sheet)
@@ -379,6 +398,7 @@ def main():
     from glome_tpu_torch.tools import micro_kwide as MKW
     from glome_tpu_torch.tools import micro_prims as MPR
     from glome_tpu_torch.tools import profile_frame as PF
+    from glome_tpu_torch.tools import scaling_bench as SB
     from glome_tpu_torch.tools.device_time import device_time
     from glome_tpu_torch.render import camera
     from glome_tpu_torch.scenes.phasescene import (block_rays, block_scene,
@@ -2310,6 +2330,83 @@ def main():
         return ok
     phase("30 the frame-profiling tool (python -m "
           "glome_tpu_torch.tools.profile_frame) on every path", p_profile)
+
+    # -- 32. the scaling harness (rank subprocesses sharing the card) -------
+    def p_scaling():
+        t0 = time.perf_counter()
+        out = os.path.join(ROOT, "build", "smoke_scaling.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "glome_tpu_torch.tools.scaling_bench",
+             "--counts", ",".join(map(str, SCALING_COUNTS)),
+             "--timeout", "300", "--out", out], cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
+        shutil.rmtree(SB.rank_dir(out), ignore_errors=True)  # the frames
+        for line in proc.stderr.splitlines():
+            print(f"  {'[' + smi_line + '] ' if ' ms [' in line else ''}"
+                  f"{line}")
+        lines = proc.stdout.splitlines()
+        print(f"  exit {proc.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s, {len(lines)} stdout lines")
+        if proc.returncode != 0 or len(lines) != 1:
+            return False
+        print(f"  [{smi_line}] scaling: {lines[0]}")
+        p = json.loads(lines[0])
+        missing = [k for k in SB.SCALING_KEYS + SB.ADDED_KEYS if k not in p]
+        # one launch of each count runs both series: a warm-up and the
+        # timed frames each, K1_PER_FRAME K1 launches a frame
+        per_series = (p["reps"] + 1) * SB.K1_PER_FRAME["cuda"]
+        want = {str(n): [per_series * (1 + (m is not None))] * n
+                for n, m in zip(p["devices"], p["ms_core_per_rank"])}
+        for n, ks in p["k1_launches"].items():
+            for r, k in enumerate(ks):
+                entries["mega_select"]["launches_by_path"][
+                    f"scaling_n{n}_rank{r}"] = k
+        bad = [m for m in p["ms"] + p["ms_core_per_rank"]
+               if m is not None and not m > 0]
+        print(f"  missing keys {missing}, readings <= 0 {bad}; K1 launches "
+              f"per rank {p['k1_launches']}, want {want}")
+        ok = (not missing and not bad and None not in p["ms"]
+              and p["k1_launches"] == want and p["backend"] == "cuda"
+              and p["devices"] == list(SCALING_COUNTS))
+        # K1 at the harness's shapes: simple_scene's first-level batches
+        # of the one-rank frame and of one of eight ranks, against the
+        # plain version; timed, and bounded from its tally
+        stracer, sarrays, so, sd = SB.setup(dev, SB.N_RAYS)
+        sc = stracer.compiled
+        stabs = MK.pack_tables(MK.get_plan(sc), sc, sarrays)
+        n = so.shape[0]
+        q = torch.cat([so.t(), sd.t(), torch.full((1, n), T.INFINITY,
+                                                  device=dev),
+                       torch.zeros((1, n), device=dev)]).contiguous()
+        sh = KAB.l0_shadow(sc, sarrays, q)
+        shard = q[:, :n // SCALING_COUNTS[-1]].contiguous()
+        for label, rays, shadow in (("L0", q, False),
+                                    (f"L0 of one of {SCALING_COUNTS[-1]} "
+                                     "ranks", shard, False),
+                                    ("first shadow", sh, True)):
+            good, err = compare(f"K1 vs plain, simple_scene {label}",
+                                *both(stabs, rays, shadow), shadow)
+            ok &= good
+            if label == "L0":
+                entries["mega_select"]["scaling_max_abs_err"] = err
+        kms = cuda_ms(lambda: MK.mega_select(stabs, q, False), 20)
+        pms = cuda_ms(lambda: MK.mega_select_plain(stabs, q, False), 3)
+        entries["mega_select"].update(scaling_ms=kms, scaling_plain_ms=pms,
+                                      scaling_rays=n)
+        tally = torch.zeros((MK.TALLY_ROWS, n), dtype=torch.int32,
+                            device=dev)
+        MK.mega_select(stabs, q, False, tally=tally)
+        tbytes = sum(t.numel() * t.element_size() for t in
+                     (stabs.pf, stabs.pi, stabs.nf, stabs.ni, stabs.nodes,
+                      stabs.bb, stabs.pbox, stabs.phases))
+        bound("mega_select", 32 * n, 12 * n, tbytes, tally.cpu(),
+              MIN_PRIM_FLOPS, prefix="scaling_")
+        print(f"  [{smi_line}] simple_scene L0 batch ({n} rays): K1 "
+              f"{kms:.4f} ms/launch, plain {pms:.4f} ms/launch "
+              f"({pms / kms:.2f}x)")
+        return ok
+    phase("32 scaling: python -m glome_tpu_torch.tools.scaling_bench",
+          p_scaling)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

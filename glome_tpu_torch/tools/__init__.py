@@ -1,6 +1,7 @@
 """The port's tools: the counterparts of the repository's TPU tools
 (tools/micro_prims.py, tools/micro_kwide.py, tools/tpu_time.py,
 tools/config5_e2e.py, the frame profilers tools/profile_*.py, in
-profile_frame.py, and the root bench.py, in bench.py) and the port's
-own (kernel_ab.py, sharded.py), run with
+profile_frame.py, the root bench.py, in bench.py, and
+tools/scaling_bench.py, in scaling_bench.py) and the port's own
+(kernel_ab.py, sharded.py), run with
 ``python -m glome_tpu_torch.tools.<name>``."""

@@ -182,14 +182,17 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def launch(argv, nprocs, timeout):
-    """Run nprocs ranks of this tool; 0 when every rank exits 0."""
+def launch(argv, nprocs, timeout, module="glome_tpu_torch.tools.sharded"):
+    """Run nprocs ranks of `module` (python -m module argv --rank r
+    --port p, every rank on one free localhost port); 0 when every rank
+    exits 0 before the timeout, else 1, once every rank is stopped (the
+    rest are killed as soon as one fails)."""
     port = _free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (ROOT, env.get("PYTHONPATH")) if p)
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "glome_tpu_torch.tools.sharded", *argv,
+        [sys.executable, "-m", module, *argv,
          "--rank", str(r), "--port", str(port)], env=env)
         for r in range(nprocs)]
     deadline = time.time() + timeout
@@ -206,7 +209,7 @@ def launch(argv, nprocs, timeout):
             p.wait()
     rcs = [p.returncode for p in procs]
     if any(rcs):
-        print(f"sharded: rank exit codes {rcs}", file=sys.stderr)
+        print(f"{module}: rank exit codes {rcs}", file=sys.stderr)
     return int(any(rcs))
 
 
