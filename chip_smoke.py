@@ -102,8 +102,14 @@ micro_kwide), and checks them in phases:
      plain call) and times it (tools.device_time, the SM clock sampled);
      then every variant against its plain version on the same inputs,
      bit-equal except f_mxu128 (rtol / atol 1e-4 on >= 99.9% of rays, its
-     3xTF32 tensor-core product), the plain version's time, and each
-     variant's bound from the sphere tests its tiles made;
+     3xTF32 tensor-core product), the plain version's time, each
+     variant's bound from the sphere tests its tiles made, its issue
+     floor (the SASS instructions of its hot loop per test, from
+     cuobjdump -sass of the built library, times the tests, over the
+     SMs x 128 lanes x the sampled SM clock), its grid and ptxas figures,
+     its launch floor (tools.device_time of a kernel of the same grid
+     that only stores its output; near the time of e, f and vread), and
+     a's step against b's test (the share of a's block-wide vote);
  18. M2 likewise through micro_kwide.main(): the K-wide walk at K = 1, 2,
      4, 8, 16 (visited nodes per tile, exactly the plain version's) and
      the scratch reads at NREAD = 16, 64;
@@ -343,30 +349,6 @@ def compare(name, kern, plain, shadow, exact=False):
     return ok, max_err
 
 
-def ptxas_figures(log, kernel):
-    """{registers, stack_frame, spill_stores, spill_loads} ptxas -v gave
-    the normal (kTally = false) build of `kernel` in a build log."""
-    fig, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"(?:entry function|Function properties for) '?(\S+?)'?"
-                      r"(?: for|$)", line.strip())
-        if m:
-            cur = m.group(1)
-            continue
-        if cur is None or kernel not in cur or "ILb0E" not in cur:
-            continue
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m:
-            fig.update(stack_frame=int(m.group(1)),
-                       spill_stores=int(m.group(2)),
-                       spill_loads=int(m.group(3)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            fig["registers"] = int(m.group(1))
-    return fig
-
-
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -438,6 +420,8 @@ def main():
     # entry, wrapper and launch count), replacing one Pallas body of the
     # tool's (tools/micro_prims.py:65 mk, tools/micro_kwide.py:47 / :138)
     micro_tools = {"micro_prims": MPR, "micro_kwide": MKW}
+    micro_libs = {"micro_prims": "glome_micro_prims",
+                  "micro_kwide": "glome_micro_kwide"}
     micro_bodies = {"a_vote_while": 82, "b_dense_fori": 99, "c_gate8": 111,
                     "c_gate16": 111, "c_gate32": 111, "d_bits168": 130,
                     "e_lane8x128": 168, "f_mxu128": 196}
@@ -575,9 +559,12 @@ def main():
               f"{info['seconds']:.2f} s; "
               f"{info['version'].splitlines()[0]}")
         for name, path in zip(kernel_fns, paths):
-            # K1-K5 come first, in kernel_fns order (kernels.LIBRARIES)
-            entries[name]["ptxas"] = ptxas_figures(
-                kernels.BUILD_INFO[path]["log"], name + "_kernel")
+            # K1-K5 come first, in kernel_fns order (kernels.LIBRARIES);
+            # the normal build (kTally = false, ILb0E) of each
+            figs = kernels.ptxas_figures(kernels.BUILD_INFO[path]["log"])
+            entries[name]["ptxas"] = next(
+                f for fn, f in figs.items()
+                if name + "_kernel" in fn and "ILb0E" in fn)
         for path in paths:
             info = kernels.BUILD_INFO[path]
             print(f"  {os.path.relpath(path, ROOT)}: nvcc "
@@ -1554,14 +1541,13 @@ def main():
     # -- 17/18. the card microbenchmarks M1 and M2 -------------------------
     def micro_bound(v, inp, tally):
         """(bound ms, "bytes" | "operations", detail) of one variant's
-        launch: the ray components it reads, its tables and its output
-        once over HBM_BPS, against the float32 work of the tests its
+        launch: what it reads of the rays (vread: only the sectors of its
+        N elements), its tables and its output once over HBM_BPS
+        (MPR.moved_bytes), against the float32 work of the tests its
         tiles made (tally) over F32_FLOPS and, for f, its 3xTF32 product
         over TF32_FLOPS."""
         n_t = inp["rays"].shape[1]
-        n_rays = n_t * MPR.TILE
-        nbytes = (4 * (v.ray_comps + 1) * n_rays
-                  + sum(4 * inp[t].numel() for t in v.tables))
+        nbytes = MPR.moved_bytes(v, inp)
         tests = int(tally.sum())
         t_bytes = nbytes / HBM_BPS * 1e3
         t_ops = tests * v.tile_ops / F32_FLOPS * 1e3
@@ -1575,6 +1561,13 @@ def main():
             return t_bytes, "bytes", detail
         return t_ops, "operations", detail
 
+    def sm_clock_mhz(reading):
+        """The SM clock (MHz) of a clocks() reading."""
+        m = re.match(r"\s*(\d+) MHz", reading)
+        if m is None:
+            raise RuntimeError(f"no SM clock in {reading!r}")
+        return float(m.group(1))
+
     def p_micro(key, path):
         tool = micro_tools[key]
         print(f"  [{smi_line}] clocks at the start: {clocks()}")
@@ -1582,10 +1575,18 @@ def main():
         rows = tool.main([])          # the tool's entry point, its size
         counts = read_counts(path)
         launched = {v.name: v.kernel.launches for v in tool.VARIANTS}
-        print(f"  clocks after the timed rows: {clocks()}")
+        after = clocks()
+        print(f"  clocks after the timed rows: {after}")
         ok = (counts["plain"] == 0 and all(launched.values())
               and all(counts[k] == 0 for k in counts
                       if k != "plain" and not k.startswith(key + ".")))
+        # the build as the card runs it: ptxas figures and SASS; the issue
+        # floor at the SM clock read after the timed rows
+        lib = kernels.library_path(micro_libs[key])
+        figs = kernels.ptxas_figures(kernels.BUILD_INFO[lib]["log"])
+        funcs = MPR.sass_functions(kernels.sass(lib))
+        clk = sm_clock_mhz(after)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         inp = tool.device_inputs(dev)
         for v, sec, _out in rows:
             args = (inp["rays"], *(inp[t] for t in v.tables))
@@ -1606,9 +1607,17 @@ def main():
                 check = "bit-equal" if good else "NOT bit-equal"
             pms = cuda_ms(lambda: v.plain(*args), 1, warm=0)
             bound, by, detail = micro_bound(v, inp, tally)
+            floor, per = MPR.issue_floor(v, funcs, int(tally.sum()), tool.T,
+                                         sms, clk)
+            fig = figs[MPR.find_function(figs, v.symbol)]
             row = {"ms": sec * 1e3, "plain_ms": pms, "bound_ms": bound,
                    "bound_by": by, "max_abs_err": err,
-                   "tests_per_tile": int(tally.sum()) / tool.T}
+                   "tests_per_tile": int(tally.sum()) / tool.T,
+                   "issue_floor_ms": floor, "instructions_per_test": per,
+                   "sm_clock_mhz": clk, "ptxas": fig,
+                   "grid": [tool.T * v.grid[0], v.grid[1]],
+                   "launch_floor_ms": device_time(
+                       lambda: MPR.store_tile(inp["rays"], v.grid)) * 1e3}
             if v.units is None:       # a walk: the nodes it visited
                 per_tile = k[:, 0, 0]
                 row.update(visited_tile0=float(per_tile[0]),
@@ -1617,12 +1626,29 @@ def main():
                          f"0), {float(per_tile.mean()):.2f} (mean)")
             else:
                 extra = ""
+            unit = "thread" if v.per_pass == 0 else "test"
             print(f"  [{smi_line}] {v.name}: {launched[v.name]} launches, "
                   f"{sec * 1e3:.5f} ms/launch, plain {pms:.4f} ms, bound "
-                  f"{bound * 1e3:.3f} us ({by}: {detail}); kernel vs plain "
-                  f"{check}, max |diff| {err:.3g}{extra}")
+                  f"{bound * 1e3:.3f} us ({by}: {detail}); issue floor "
+                  f"{floor * 1e3:.3f} us ({per:.2f} SASS instructions per "
+                  f"{unit}, {sms} SMs x {MPR.LANES_PER_SM} lanes at "
+                  f"{clk:.0f} MHz); launch floor "
+                  f"{row['launch_floor_ms'] * 1e3:.3f} us; grid "
+                  f"{row['grid'][0]} x {row['grid'][1]}; ptxas "
+                  f"{fig}; kernel vs plain {check}, max |diff| "
+                  f"{err:.3g}{extra}")
             ok &= good
             entries[f"{key}.{v.name}"].update(row)
+        if key == "micro_prims":
+            # a's step is b's test plus a block-wide vote (a barrier)
+            a, b = (entries[f"micro_prims.{n}"]
+                    for n in ("a_vote_while", "b_dense_fori"))
+            a_ns, b_ns = (e["ms"] * 1e6 / (e["tests_per_tile"] * tool.T)
+                          for e in (a, b))
+            print(f"  [{smi_line}] a's step {a_ns:.4f} ns per tile against "
+                  f"b's test {b_ns:.4f} ns: the vote's barrier "
+                  f"{a_ns - b_ns:.4f} ns, {100 * (a_ns - b_ns) / a_ns:.1f}% "
+                  f"of a's step")
         return ok
     phase("17 M1 micro_prims on the card",
           lambda: p_micro("micro_prims", "micro_prims_T256"))

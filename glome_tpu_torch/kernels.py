@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -223,20 +224,32 @@ MICRO_PRIMS_ENTRIES = {
     "glome_micro_bits168": [_vp, _i32, _vp, _i32, _vp, _vp],
     "glome_micro_lane8x128": [_vp, _i32, _vp, _vp, _vp],
     "glome_micro_mxu128": [_vp, _i32, _vp, _vp, _vp]}
+# csrc/micro_kwide.cu's: (rays, T, nf, M, K, out, stream), (rays, T,
+# NREAD, out, stream)
+MICRO_KWIDE_ENTRIES = {
+    "glome_micro_walk": [_vp, _i32, _vp, _i32, _i32, _vp, _vp],
+    "glome_micro_vread": [_vp, _i32, _i32, _vp, _vp]}
+# the launch floor beside them in csrc/micro_prims.cu: (rays, T,
+# blocks_per_tile, threads, out, stream)
+MICRO_FLOOR_ENTRIES = {
+    "glome_micro_store_tile": [_vp, _i32, _i32, _i32, _vp, _vp]}
 
 
-def _setup_micro_prims(lib):
-    for name, argtypes in MICRO_PRIMS_ENTRIES.items():
+def set_entries(lib, entries):
+    """Give each C entry of `lib` named in `entries` its argument types
+    (and an int result)."""
+    for name, argtypes in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = _i32
 
 
+def _setup_micro_prims(lib):
+    set_entries(lib, {**MICRO_PRIMS_ENTRIES, **MICRO_FLOOR_ENTRIES})
+
+
 def _setup_micro_kwide(lib):
-    lib.glome_micro_walk.argtypes = [_vp, _i32, _vp, _i32, _i32, _vp, _vp]
-    lib.glome_micro_walk.restype = _i32
-    lib.glome_micro_vread.argtypes = [_vp, _i32, _i32, _vp, _vp]
-    lib.glome_micro_vread.restype = _i32
+    set_entries(lib, MICRO_KWIDE_ENTRIES)
 
 
 def mega_select_lib():
@@ -286,7 +299,51 @@ def load_all():
         futs = [pool.submit(f) for f in loaders]
         for f in futs:
             f.result()
-    return [build(LIBRARIES[name], name) for name in LIBRARIES]
+    return [library_path(name) for name in LIBRARIES]
+
+
+def library_path(name: str) -> str:
+    """The file of library `name` (a key of LIBRARIES), built if it is
+    not there yet."""
+    return build(LIBRARIES[name], name)
+
+
+def ptxas_figures(log: str):
+    """{mangled name: {registers, smem, stack_frame, spill_stores,
+    spill_loads}} of every entry function in a build's ptxas -v log."""
+    figs, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = figs.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame=int(m.group(1)),
+                       spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return figs
+
+
+def sass(path: str) -> str:
+    """`cuobjdump -sass` of a built library (the toolkit's, beside
+    nvcc): the machine code its kernels run."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    proc = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=120)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {path} failed "
+                           f"({proc.returncode}):\n{proc.stderr}")
+    return proc.stdout
 
 
 def check_launch(lib, err: int, what: str):

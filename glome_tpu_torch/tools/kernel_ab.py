@@ -23,6 +23,11 @@ of the parameter lists of OLD_ENTRIES:
     skip_link_tables), or its child-pair records as this checkout does
     (a variant of this checkout's kernel, built from another tree).
 
+  - M1 (csrc/micro_prims.cu) and M2 (csrc/micro_kwide.cu), the card
+    microbenchmarks, whose C entries keep one signature per variant
+    across designs (the tool checks that every variant's entry is
+    declared alike in both trees).
+
 It refuses (exit 2) an --old tree that declares none of them.  The old
 sources are built with this checkout's nvcc flags.  It prints, with the
 card's name, power limit and SM clock:
@@ -44,7 +49,12 @@ card's name, power limit and SM clock:
     the count of such ties is printed), in shadow mode which rays are
     blocked; device times old, new, new, old; both tallies per ray.  The
     old K2 runs on its own 8-row blocks, and again on the new kernel's
-    blocks (the same tree: the walks alone compared), in turns too.
+    blocks (the same tree: the walks alone compared), in turns too;
+  - every M1 and M2 variant at the tools' size (256 tiles): old and new
+    equal on every ray (f_mxu128, a 3xTF32 tensor-core product, within
+    micro_prims.MXU_RTOL / MXU_ATOL on >= MXU_AGREE of the rays), device
+    times old, new, new, old, and each build's registers, spills, shared
+    memory and SASS instructions (the function's, its innermost loops').
 
 Everything it prints also goes to --json (default
 build/kernel_ab.json).  It needs a card.
@@ -73,6 +83,8 @@ from .. import megakernel as MK
 from .. import mesh_kernel as MSH
 from ..compile import group_accel, group_device_params
 from .device_time import device_time
+from . import micro_kwide as MKW
+from . import micro_prims as MPR
 
 # the earlier commits' C entries, source -> {design: (name, parameter list
 # as its source declares it)}; the tool calls an entry with these
@@ -129,6 +141,19 @@ OLD_ENTRIES = {
             "const float* vis, int F, int ptype, const float* cf, "
             "const int* cdesc, int shadow, float* out_t, int* out_l, "
             "int* tally, void* stream")},
+    # M1 / M2: one entry per variant, each signature unchanged since the
+    # first port; the first stands for the source (micro_entries checks
+    # them all)
+    "micro_prims.cu": {
+        "variant entries": (
+            "glome_micro_dense_fori",
+            "const float* rays, int T, const float* pf, int P, float* out, "
+            "void* stream")},
+    "micro_kwide.cu": {
+        "variant entries": (
+            "glome_micro_walk",
+            "const float* rays, int T, const float* nf, int M, int K, "
+            "float* out, void* stream")},
 }
 # K5's rays on the check groups beyond TestScene
 K5_RAYS = 65536
@@ -153,6 +178,21 @@ def old_designs(old_csrc: str):
             if declared_params(os.path.join(old_csrc, source), fn) == params:
                 found[source] = design
     return found
+
+
+def micro_entries(old_csrc: str, source: str):
+    """The C entries of a microbenchmark source (kernels.MICRO_*_ENTRIES)
+    with their argument types, after checking that the tree at old_csrc
+    declares every one as this checkout's source does."""
+    entries = (kernels.MICRO_PRIMS_ENTRIES if source == "micro_prims.cu"
+               else kernels.MICRO_KWIDE_ENTRIES)
+    for fn in entries:
+        new = declared_params(os.path.join(kernels.CSRC, source), fn)
+        old = declared_params(os.path.join(old_csrc, source), fn)
+        if old != new:
+            raise ValueError(f"{old_csrc}/{source} declares {fn}({old}), "
+                             f"this checkout {fn}({new})")
+    return entries
 
 
 def old_entry(lib_path: str, source: str, design: str):
@@ -598,6 +638,16 @@ def main(argv=None) -> int:
                       f"{row['tally new']} (clocks before "
                       f"{row['clocks'][0]}; after {row['clocks'][1]})")
                 out["k5"][f"{label} {mode}"] = row
+    # -- M1 and M2: every variant, old against new, at the tools' size
+    for source, key in (("micro_prims.cu", "m1"), ("micro_kwide.cu", "m2")):
+        if source in designs:
+            old_lib = ctypes.CDLL(paths[f"old {source}"])
+            old_lib.glome_cuda_error_name.argtypes = [ctypes.c_int]
+            old_lib.glome_cuda_error_name.restype = ctypes.c_char_p
+            kernels.set_entries(old_lib, micro_entries(old_csrc, source))
+            out[key] = _micro_rows(out["device"], source, old_lib,
+                                   paths[f"old {source}"],
+                                   paths[f"new {source}"], dev, turns)
     out["clocks_end"] = clocks()
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
@@ -605,10 +655,67 @@ def main(argv=None) -> int:
             json.dump(out, f, indent=1)
     ok = (all(r["new_equals_old"] for k in ("k1", "k2", "k3", "k5")
               for r in out.get(k, {}).values())
-          and all(r["equal"] for r in out.get("k4", {}).values()))
+          and all(r["equal"] for r in out.get("k4", {}).values())
+          and all(r["new_equals_old"] for k in ("m1", "m2")
+                  for r in out.get(k, {}).values()))
     print("kernel_ab: " + ("every kernel equals its predecessor" if ok
                            else "MISMATCH"))
     return 0 if ok else 1
+
+
+def _sass_summary(funcs, symbol):
+    """(instructions, [innermost loops' instructions]) of the function
+    whose name holds `symbol`."""
+    instrs = funcs[MPR.find_function(funcs, symbol)]
+    return len(instrs), [n for _a, _b, n in MPR.innermost_loops(instrs)]
+
+
+def _micro_rows(device, source, old_lib, old_path, new_path, dev, turns):
+    """M1 or M2 (by `source`): every variant's old and new launch on the
+    tool's inputs at its size, compared, timed in turns, and both
+    builds' ptxas figures and SASS sizes."""
+    tool = MPR if source == "micro_prims.cu" else MKW
+    inp = tool.device_inputs(dev)
+    figs = {v: kernels.ptxas_figures(kernels.BUILD_INFO[p]["log"])
+            for v, p in (("old", old_path), ("new", new_path))}
+    sass = {v: MPR.sass_functions(kernels.sass(p))
+            for v, p in (("old", old_path), ("new", new_path))}
+    rows = {}
+    for v in tool.VARIANTS:
+        tables = [inp[t] for t in v.tables]
+        entry, args = tool.c_call(v.name, *tables)
+        runs = {"old": lambda: MPR.launch(old_lib, entry, inp["rays"],
+                                          *args),
+                "new": lambda: v.kernel(inp["rays"], *tables)}
+        got = {k: fn() for k, fn in runs.items()}
+        torch.cuda.synchronize()
+        if v.name == "f_mxu128":
+            frac = float(torch.isclose(got["new"], got["old"],
+                                       rtol=MPR.MXU_RTOL, atol=MPR.MXU_ATOL)
+                         .float().mean())
+            same = frac >= MPR.MXU_AGREE
+            how = (f"within rtol {MPR.MXU_RTOL} / atol {MPR.MXU_ATOL} on "
+                   f"{100 * frac:.4f}% of rays")
+        else:
+            same = bool(torch.equal(got["new"], got["old"]))
+            how = "equal on every ray" if same else "NOT equal"
+        row = {"new_equals_old": bool(same), "max_abs_diff": float(
+            (got["new"] - got["old"]).abs().max())}
+        row["turns_old_new"], row["clocks"] = turns(runs)
+        for b in ("old", "new"):
+            name = MPR.find_function(figs[b], v.symbol)
+            row[f"ptxas_{b}"] = figs[b][name]
+            row[f"sass_{b}"] = _sass_summary(sass[b], v.symbol)
+        print(f"  [{device}] {v.name}: new vs old {how} (max |diff| "
+              f"{row['max_abs_diff']:.3g}); ms old / new / new / old "
+              f"{_fmt(row['turns_old_new'])} (clocks before "
+              f"{row['clocks'][0]}; after {row['clocks'][1]})")
+        for b in ("old", "new"):
+            n, loops = row[f"sass_{b}"]
+            print(f"    {b}: ptxas {row[f'ptxas_{b}']}; SASS {n} "
+                  f"instructions, innermost loops {loops}")
+        rows[v.name] = row
+    return rows
 
 
 def _k4_group(device, sc, si, gi, g, arrays, q0, seed, dev, old_k4, new_k4,

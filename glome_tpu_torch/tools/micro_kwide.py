@@ -45,6 +45,8 @@ TILE = 1024
 # float32 operations per ray of one slab test (6 sub, 6 mul, 6 min/max of
 # the pairs, 2 max, 2 min, 2 compares)
 SLAB_OPS = 24
+# bytes: the least a read moves from the card's memory
+SECTOR = 32
 
 
 def make_inputs(tiles: int = T):
@@ -154,8 +156,20 @@ vread_plain.calls = 0
 # current stream (counting `launches`), on a CPU tensor runs its plain
 # version; another device raises.
 
-def _launch(entry, rays, *args):
+def c_call(name, *tables):
+    """(C entry, its arguments after (rays, T)) of variant `name` on its
+    tables (kernel_ab.py calls an earlier build's entries the same
+    way)."""
+    if name.startswith("walk_K"):
+        (nf,) = tables
+        return "glome_micro_walk", (nf.data_ptr(), nf.numel() // 6,
+                                    int(name[6:]))
+    return "glome_micro_vread", (int(name[6:]),)
+
+
+def _launch(name, rays, *tables):
     from .. import kernels
+    entry, args = c_call(name, *tables)
     return launch(kernels.micro_kwide_lib(), entry, rays, *args)
 
 
@@ -164,7 +178,7 @@ def _walk_wrapper(K: int):
         m = _heap_size(f"walk{K}", nf)
         if not on_card(f"walk{K}", rays, [("nf", nf, (6 * m,))]):
             return walk_plain(rays, nf, K)
-        out = _launch("glome_micro_walk", rays, nf.data_ptr(), m, K)
+        out = _launch(f"walk_K{K}", rays, nf)
         walk_k.launches += 1
         return out
     walk_k.__name__ = walk_k.__qualname__ = f"walk{K}"
@@ -177,7 +191,7 @@ def _vread_wrapper(nread: int):
     def vread_n(rays):
         if not on_card(f"vread{nread}", rays, []):
             return vread_plain(rays, nread)
-        out = _launch("glome_micro_vread", rays, nread)
+        out = _launch(f"vread_{nread}", rays)
         vread_n.launches += 1
         return out
     vread_n.__name__ = vread_n.__qualname__ = f"vread{nread}"
@@ -209,12 +223,27 @@ def _plain_vread(nread):
     return plain
 
 
+def vread_sectors(nread: int) -> int:
+    """The 32-byte sectors of a tile's ox (4096 bytes from a 32-byte
+    boundary) that vread<nread>'s reads fall in: the least it moves."""
+    return len({4 * ((i % 8) * 128 + (i * 13) % 128) // SECTOR
+                for i in range(nread)})
+
+
+def _vread_bytes(nread):
+    return lambda rays: rays.shape[1] * SECTOR * vread_sectors(nread)
+
+
 # the tool's rows (micro_prims.Variant): a walk's units are the nodes it
-# visits, read from its output
+# visits, read from its output; a walk's pass tests K nodes, vread has no
+# loop, stores its tile from 256 threads (csrc/micro_kwide.cu
+# VREAD_THREADS) and reads only its sectors of ox
+VREAD_GRID = (1, 256)
 VARIANTS = tuple(
     [Variant(f"walk_K{K}", WALKS[K], _plain_walk(K), ("nf",), None, 6,
-             SLAB_OPS * TILE) for K in KS]
-    + [Variant(f"vread_{n}", VREADS[n], _plain_vread(n), (), n, 1, 1)
+             SLAB_OPS * TILE, f"walk_kernelILi{K}E", K) for K in KS]
+    + [Variant(f"vread_{n}", VREADS[n], _plain_vread(n), (), n, 1, 1,
+               f"vread_kernelILi{n}E", 0, VREAD_GRID, _vread_bytes(n))
        for n in NREADS])
 PLAIN = (walk_plain, vread_plain)
 

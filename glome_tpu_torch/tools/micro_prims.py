@@ -16,6 +16,9 @@ Each variant has a kernel wrapper (CUDA tensors launch csrc/micro_prims.cu
 and count `launches`; CPU tensors take the plain version) and a plain
 torch version (`*_plain`, counting `calls`).  Inputs are the tool's own:
 make_inputs() draws them with numpy exactly as tools/micro_prims.py does.
+Beside them: store_tile, a kernel of a variant's grid that only stores
+its output (the launch floor), and the readers of a build's ptxas log
+and SASS that give each variant's registers and its issue floor.
 
     python -m glome_tpu_torch.tools.micro_prims                  # the card
     python -m glome_tpu_torch.tools.micro_prims --device cpu --tiles 2
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import re
 from dataclasses import dataclass
 from typing import Callable
 
@@ -293,8 +297,34 @@ def launch(lib, entry: str, rays, *args):
     return out
 
 
-def _launch(entry: str, rays, *args):
+def _pf_call(entry):
+    return lambda pf: (entry, (pf.data_ptr(), pf.numel() // 4))
+
+
+# each variant's C entry and its arguments after (rays, T), from its
+# tables (c_call)
+_C_CALLS = {
+    "a_vote_while": lambda pf: ("glome_micro_vote_while",
+                                (pf.data_ptr(), pf.numel() // 4, STEPS)),
+    "b_dense_fori": _pf_call("glome_micro_dense_fori"),
+    **{f"c_gate{n}": _pf_call(f"glome_micro_gate{n}") for n in (8, 16, 32)},
+    "d_bits168": _pf_call("glome_micro_bits168"),
+    "e_lane8x128": lambda pfl: ("glome_micro_lane8x128", (pfl.data_ptr(),)),
+    "f_mxu128": lambda pfl: ("glome_micro_mxu128", (pfl.data_ptr(),)),
+}
+
+
+def c_call(name: str, *tables):
+    """(C entry, its arguments after (rays, T)) of variant `name` on its
+    tables (kernel_ab.py calls an earlier build's entries the same
+    way)."""
+    return _C_CALLS[name](*tables)
+
+
+def _launch(name: str, rays, *tables):
+    """Launch variant `name`'s entry of this checkout's M1 library."""
     from .. import kernels
+    entry, args = c_call(name, *tables)
     return launch(kernels.micro_prims_lib(), entry, rays, *args)
 
 
@@ -302,8 +332,7 @@ def vote_while(rays, pf):
     """(a): csrc/micro_prims.cu vote_while_kernel or vote_while_plain."""
     if not _pf_on_card("vote_while", rays, pf):
         return vote_while_plain(rays, pf)
-    out = _launch("glome_micro_vote_while", rays, pf.data_ptr(),
-                  pf.numel() // 4, STEPS)
+    out = _launch("a_vote_while", rays, pf)
     vote_while.launches += 1
     return out
 
@@ -312,8 +341,7 @@ def dense_fori(rays, pf):
     """(b): dense_fori_kernel or dense_fori_plain."""
     if not _pf_on_card("dense_fori", rays, pf):
         return dense_fori_plain(rays, pf)
-    out = _launch("glome_micro_dense_fori", rays, pf.data_ptr(),
-                  pf.numel() // 4)
+    out = _launch("b_dense_fori", rays, pf)
     dense_fori.launches += 1
     return out
 
@@ -322,8 +350,7 @@ def _gate_wrapper(leaf: int):
     def gate(rays, pf):
         if not _pf_on_card(f"gate{leaf}", rays, pf):
             return gated_plain(rays, pf, leaf)
-        out = _launch(f"glome_micro_gate{leaf}", rays, pf.data_ptr(),
-                      pf.numel() // 4)
+        out = _launch(f"c_gate{leaf}", rays, pf)
         gate.launches += 1
         return out
     gate.__name__ = gate.__qualname__ = f"gate{leaf}"
@@ -339,8 +366,7 @@ def bits168(rays, pf):
     """(d): bits168_kernel or bits168_plain; pf holds >= 168 spheres."""
     if not _pf_on_card("bits168", rays, pf, min_spheres=8 * 21):
         return bits168_plain(rays, pf)
-    out = _launch("glome_micro_bits168", rays, pf.data_ptr(),
-                  pf.numel() // 4)
+    out = _launch("d_bits168", rays, pf)
     bits168.launches += 1
     return out
 
@@ -349,18 +375,29 @@ def lane8x128(rays, pf_lane):
     """(e): lane8x128_kernel or lane8x128_plain."""
     if not on_card("lane8x128", rays, [("pf_lane", pf_lane, (4, 8, 128))]):
         return lane8x128_plain(rays, pf_lane)
-    out = _launch("glome_micro_lane8x128", rays, pf_lane.data_ptr())
+    out = _launch("e_lane8x128", rays, pf_lane)
     lane8x128.launches += 1
     return out
 
 
 def mxu128(rays, pf_lane):
-    """(f): mxu128_kernel (mma.sync TF32, 3xTF32 split) or mxu128_plain."""
+    """(f): mxu128_kernel (wgmma TF32, 3xTF32 split) or mxu128_plain."""
     if not on_card("mxu128", rays, [("pf_lane", pf_lane, (4, 8, 128))]):
         return mxu128_plain(rays, pf_lane)
-    out = _launch("glome_micro_mxu128", rays, pf_lane.data_ptr())
+    out = _launch("f_mxu128", rays, pf_lane)
     mxu128.launches += 1
     return out
+
+
+def store_tile(rays, grid):
+    """The launch floor of a grid (blocks per tile, threads per block):
+    csrc/micro_prims.cu store_tile_kernel on rays' T tiles, which only
+    stores its (T, 8, 128) output (zeros).  Needs CUDA rays."""
+    from .. import kernels
+    if not on_card("store_tile", rays, []):
+        raise ValueError("store_tile: the launch floor is a card kernel")
+    return launch(kernels.micro_prims_lib(), "glome_micro_store_tile", rays,
+                  *grid)
 
 
 for _fn in (vote_while, dense_fori, bits168, lane8x128, mxu128):
@@ -376,7 +413,14 @@ class Variant:
     `tally`, a (T,) int64 tensor that receives each tile's tests), the
     names of the tables they read, the tool's units per tile (None: the
     output counts them), the ray components read, and the float32
-    operations of one test (a sphere, node or read) over a whole tile."""
+    operations of one test (a sphere, node or read) over a whole tile.
+    Then the kernel as built: a fragment of its mangled name, the tests
+    one pass of its hot loop makes for a ray (a thread's share of them
+    where several threads serve a ray; 0: a kernel with no loop, whose
+    every instruction a thread issues once), and its grid per tile
+    (blocks, threads per block).  Last, the bytes its function reads of
+    the rays, as a function of them (None: its ray_comps components
+    whole)."""
     name: str
     kernel: Callable
     plain: Callable
@@ -384,26 +428,55 @@ class Variant:
     units: int | None
     ray_comps: int
     tile_ops: int
+    symbol: str
+    per_pass: int = 1
+    grid: tuple = (1, TILE)
+    ray_bytes: Callable | None = None
+
+
+def moved_bytes(v: Variant, inputs) -> int:
+    """The bytes variant v's function must move on `inputs` (a dict of
+    tensors: "rays" and its tables), the numerator of its bound: what it
+    reads of the rays, each of its tables once and its (T, 8, 128) output
+    once."""
+    rays = inputs["rays"]
+    n_rays = rays[0].numel()
+    reads = (v.ray_bytes(rays) if v.ray_bytes is not None
+             else 4 * v.ray_comps * n_rays)
+    return (reads + 4 * n_rays
+            + sum(4 * inputs[t].numel() for t in v.tables))
 
 
 _TEST_OPS = (SPH_OPS + KEEP_OPS) * TILE
 
+# b's tests per pass of its sphere loop, the (ray, sphere) pairs one
+# thread of f covers per pass of its loop over two 64-sphere halves (32
+# accumulators: 16 spheres for each of its 2 rays), and the grids of the
+# split variants (csrc/micro_prims.cu DENSE_UNROLL, MXU_ACC, SPLIT,
+# MXU_SPLIT)
+DENSE_UNROLL = 4
+MXU_PASS = 32
+SPLIT_GRID = (4, 256)
+MXU_GRID = (16, 128)
+
 VARIANTS = (
     Variant("a_vote_while", vote_while, vote_while_plain, ("pf",), STEPS, 7,
-            _TEST_OPS + TILE),                      # + the vote's compare
+            _TEST_OPS + TILE,                       # + the vote's compare
+            "vote_while_kernel"),
     Variant("b_dense_fori", dense_fori, dense_fori_plain, ("pf",), P, 7,
-            _TEST_OPS),
+            _TEST_OPS, "dense_fori_kernel", DENSE_UNROLL, SPLIT_GRID),
     Variant("c_gate8", gate8, functools.partial(gated_plain, leaf=8),
-            ("pf",), P, 7, _TEST_OPS),
+            ("pf",), P, 7, _TEST_OPS, "gated_kernelILi8E", 8),
     Variant("c_gate16", gate16, functools.partial(gated_plain, leaf=16),
-            ("pf",), P, 7, _TEST_OPS),
+            ("pf",), P, 7, _TEST_OPS, "gated_kernelILi16E", 16),
     Variant("c_gate32", gate32, functools.partial(gated_plain, leaf=32),
-            ("pf",), P, 7, _TEST_OPS),
-    Variant("d_bits168", bits168, bits168_plain, ("pf",), 168, 7, _TEST_OPS),
+            ("pf",), P, 7, _TEST_OPS, "gated_kernelILi32E", 32),
+    Variant("d_bits168", bits168, bits168_plain, ("pf",), 168, 7, _TEST_OPS,
+            "bits168_kernel"),
     Variant("e_lane8x128", lane8x128, lane8x128_plain, ("pf_lane",), P, 7,
-            LANE_OPS * TILE),
+            LANE_OPS * TILE, "lane8x128_kernel", 0, SPLIT_GRID),
     Variant("f_mxu128", mxu128, mxu128_plain, ("pf_lane",), 128, 7,
-            MXU_EPI_OPS * TILE),
+            MXU_EPI_OPS * TILE, "mxu128_kernel", MXU_PASS, MXU_GRID),
 )
 PLAIN = (vote_while_plain, dense_fori_plain, gated_plain, bits168_plain,
          lane8x128_plain, mxu128_plain)
@@ -413,6 +486,114 @@ PLAIN = (vote_while_plain, dense_fori_plain, gated_plain, bits168_plain,
 # over 128 spheres is taken of t0 = vm - sqrt(vm^2 - 0.05), ill-conditioned
 # near disc = 0; held to rtol / atol 1e-4 on >= 99.9% of rays
 MXU_RTOL, MXU_ATOL, MXU_AGREE = 1e-4, 1e-4, 0.999
+
+
+# --- the build: SASS and the issue floor -----------------------------------------
+# SMs and lanes issuing one thread-instruction each per cycle: the floor
+# of a launch is its thread-instructions over (SMs x LANES x SM clock)
+LANES_PER_SM = 128
+
+
+def sass_functions(text: str):
+    """{function name: [(address, opcode, branch target or None)]} of
+    `cuobjdump -sass` output; NOPs are left out.  A branch names its
+    target as an address (BRA 0x1a0) or a label (BRA `(.L_x_3)), whose
+    line precedes the instruction it labels."""
+    funcs, labels = {}, {}
+    cur, pending = None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur, pending = m.group(1), []
+            funcs[cur], labels[cur] = [], {}
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", line)
+        if m is None or cur is None:
+            continue
+        addr = int(m.group(1), 16)
+        labels[cur].update((lab, addr) for lab in pending)
+        pending = []
+        words = m.group(2).split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if not words or words[0] == "NOP":
+            continue
+        target = None
+        if words[0].startswith("BRA"):
+            rest = " ".join(words[1:])
+            t = re.search(r"\(\s*(\.L_x_\d+)\s*\)", rest)
+            if t:
+                target = t.group(1)
+            else:
+                t = re.search(r"0x([0-9a-f]+)", rest)
+                target = int(t.group(1), 16) if t else None
+        funcs[cur].append((addr, words[0], target))
+    return {name: [(a, op, labels[name].get(t) if isinstance(t, str) else t)
+                   for a, op, t in instrs]
+            for name, instrs in funcs.items()}
+
+
+def innermost_loops(instrs):
+    """[(first address, back-edge address, instructions)] of the loops of
+    one function: each backward branch and its target bound a loop; the
+    innermost are those that hold no other loop."""
+    loops = [(tgt, addr) for addr, _op, tgt in instrs
+             if isinstance(tgt, int) and tgt <= addr]
+    inner = [(a, b) for a, b in loops
+             if not any((a, b) != (c, d) and a <= c and d <= b
+                        for c, d in loops)]
+    return [(a, b, sum(1 for addr, _o, _t in instrs if a <= addr <= b))
+            for a, b in sorted(set(inner))]
+
+
+def hot_loop(instrs):
+    """Instructions of a function's largest innermost loop (0 without
+    one)."""
+    return max((n for _a, _b, n in innermost_loops(instrs)), default=0)
+
+
+def thread_instructions(instrs, per_pass: int):
+    """Instructions a thread issues per test: its hot loop's over the
+    tests one pass makes, or, for a kernel with no loop (per_pass 0),
+    the whole function's."""
+    if per_pass == 0:
+        return float(len(instrs))
+    body = hot_loop(instrs)
+    if body == 0:
+        raise ValueError("no loop in the function")
+    return body / per_pass
+
+
+def find_function(funcs, symbol: str):
+    """The one function whose mangled name holds `symbol`."""
+    hits = [name for name in funcs if symbol in name]
+    if len(hits) != 1:
+        raise KeyError(f"{symbol!r} names {len(hits)} functions: {hits}")
+    return hits[0]
+
+
+def issue_floor(v: Variant, funcs, tests: int, tiles: int, sms: int,
+                clock_mhz: float):
+    """(ms, thread-instructions per test) of variant v's launch over
+    `tiles` tiles at the issue rate of `sms` SMs x LANES_PER_SM lanes at
+    clock_mhz.  A looping kernel issues its instructions per test for
+    each of `tests` (its tiles' tests, summed) on each ray of a tile, and
+    the rest of its function once on each of its threads; a kernel with
+    no loop issues its whole function on each thread.  The SASS count
+    includes branches not taken (the slow path's call sites), so this is
+    the floor of the code as compiled, a little above what runs."""
+    instrs = funcs[find_function(funcs, v.symbol)]
+    per = thread_instructions(instrs, v.per_pass)
+    threads = tiles * v.grid[0] * v.grid[1]
+    if v.per_pass:
+        total = per * tests * TILE + (len(instrs) - hot_loop(instrs)) * threads
+    else:
+        total = per * threads
+    return total / (sms * LANES_PER_SM * clock_mhz * 1e6) * 1e3, per
 
 
 def device_inputs(device, tiles: int = T):

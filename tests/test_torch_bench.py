@@ -13,6 +13,8 @@ plain versions, at small sizes.
   per-pass ray counts.
 - main's JSON line holds every key bench.py's line has, and every timed
   reading is positive.
+- A 200-second frame reads as a positive rate from the sections; only
+  main's printed line rounds it to bench.py's 4 decimals (0.0).
 - A frame with one tile zeroed, an extra plain call or a reported
   overflow, and a section that raises, each make main exit 1; the keys
   of the failed section are absent and the others present.
@@ -226,8 +228,29 @@ def test_aa_counts_are_glome_tpus(monkeypatch):
     assert len(counts) == 2
     assert counts[0] == want
     assert tuple(stats) == bench.AA_KEYS
-    assert stats["aa_rays_per_px"] == round(sum(want.values()) / (64 * 64),
-                                            4)
+    assert stats["aa_rays_per_px"] == sum(want.values()) / (64 * 64)
+
+
+def test_slow_frame_reads_positive_until_printed(monkeypatch,
+                                                simple_golden):
+    """Every frame timed at 200 s (the frame timer monkeypatched): the
+    headline's rate from bench_frame is 4,096 rays / 200 s, positive;
+    main's printed line rounds it, and the mesh's and AA's rates, to
+    bench.py's 4 decimals, 0.0."""
+    monkeypatch.setattr(bench, "golden_path", lambda cfg: simple_golden)
+    monkeypatch.setattr(bench, "time_frames",
+                        lambda frame, device, reps: [200_000.0] * reps)
+    stats = bench.bench_frame(CPU, simple_scene(), reps=1)
+    assert stats["value"] == 64 * 64 / 200_000.0 / 1e3
+    assert stats["value"] > 0 and stats["vs_baseline"] > 0
+    assert bench.printed(stats)["value"] == 0.0
+    rc, line, err = run_main(monkeypatch, simple_golden, reps=1)
+    print(err)
+    assert rc == 0
+    rates = ["value", "vs_baseline", "aa_720x480_Mrays_per_s"] + [
+        bench.mesh_keys(tag)[1] for tag in bench.MESH_TAGS]
+    assert all(line[k] == 0.0 for k in rates), {k: line[k] for k in rates}
+    assert line["aa_720x480_ms_per_frame"] == 200_000.0
 
 
 # -- mutants -------------------------------------------------------------------------

@@ -625,6 +625,71 @@ def test_micro_wrappers_reject_bad_inputs(dev):
         err = getattr(lib, entry)(rp, 2, *args, op, None)
         with pytest.raises(RuntimeError):
             kernels.check_launch(lib, err, entry)
+    # a table or output 4 bytes off a 16-byte boundary: the bulk copies
+    # and float4 stores need 16, so the C entries refuse the launch and
+    # the wrappers raise
+    buf = torch.zeros(1 + pf.numel(), device=dev)
+    with pytest.raises(RuntimeError):
+        micro_prims.dense_fori(rays, buf[1:].copy_(pf))
+    lane = torch.zeros(1 + inp["pf_lane"].numel(), device=dev)
+    with pytest.raises(RuntimeError):
+        micro_prims.mxu128(rays, lane[1:].view(4, 8, 128))
+    nbuf = torch.zeros(1 + kin["nf"].numel(), device=dev)
+    with pytest.raises(RuntimeError):
+        micro_kwide.WALKS[4](kin["rays"], nbuf[1:].copy_(kin["nf"]))
+    obuf = torch.empty(1 + 2 * 1024, device=dev)
+    err = lib.glome_micro_vread(rp, 2, 16, obuf.data_ptr() + 4, None)
+    with pytest.raises(RuntimeError):
+        kernels.check_launch(lib, err, "glome_micro_vread")
+
+
+def _spheres(p):
+    """A row-major (4p,) sphere table drawn as micro_prims.make_inputs
+    draws the tool's (r2 = 0.05)."""
+    rng = np.random.default_rng(p)
+    pf = rng.normal(size=(4 * p,)).astype(np.float32)
+    pf[3::4] = 0.05
+    return pf
+
+
+@pytest.mark.parametrize("p", [1023, 3100])
+@pytest.mark.parametrize("name", ["a_vote_while", "b_dense_fori", "c_gate8",
+                                  "c_gate16", "c_gate32", "d_bits168"])
+def test_micro_sphere_kernels_at_other_sizes(dev, name, p):
+    """a-d at T = 8 on tables of other sizes, bit-equal to their plain
+    versions: P = 1023 (the tool's first 1023 spheres: a's wrap, b's
+    remainder after its unrolled passes, c's partial last leaf) and P =
+    3100 (a staged table above 48 KB of shared memory, which the launch
+    must opt in to)."""
+    from glome_tpu_torch.tools import micro_prims
+    v = next(v for v in micro_prims.VARIANTS if v.name == name)
+    rays = micro_prims.device_inputs(dev, 8)["rays"]
+    pf = torch.as_tensor(micro_prims.make_inputs(1)[1][:4 * p] if p < 1024
+                         else _spheres(p), device=dev)
+    before = v.kernel.launches
+    k = v.kernel(rays, pf)
+    q = v.plain(rays, pf)
+    torch.cuda.synchronize()
+    assert v.kernel.launches == before + 1
+    assert torch.equal(k, q)
+
+
+@pytest.mark.parametrize("m", [1022, 512])
+@pytest.mark.parametrize("K", [1, 4, 16])
+def test_micro_walk_even_heap(dev, K, m):
+    """The walk on an even heap (the boxes a whole number of 16-byte
+    blocks: the bulk copy alone, no 8-byte tail) is bit-equal to its
+    plain version."""
+    from glome_tpu_torch.tools import micro_kwide
+    kin = micro_kwide.device_inputs(dev, 8)
+    nf = kin["nf"][:6 * m]
+    walk = micro_kwide.WALKS[K]
+    before = walk.launches
+    k = walk(kin["rays"], nf)
+    q = micro_kwide.walk_plain(kin["rays"], nf, K)
+    torch.cuda.synchronize()
+    assert walk.launches == before + 1
+    assert torch.equal(k, q)
 
 
 def test_device_time_on_card(dev):

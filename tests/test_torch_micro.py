@@ -23,6 +23,7 @@ import functools
 import importlib
 import io
 import os
+import re
 import sys
 
 import jax.numpy as jnp
@@ -226,3 +227,245 @@ def test_wrappers_reject_bad_inputs():
         KW.WALKS[1](krays, nf.double())
     with pytest.raises(ValueError):
         KW.VREADS[16](krays.to("meta"))
+
+
+# --- the build readers behind the issue floor (kernels.ptxas_figures,
+# tools/micro_prims.py) ---
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_Z17dense_fori_kernelPKfiS0_iPf' for 'sm_90a'
+ptxas info    : Function properties for _Z17dense_fori_kernelPKfiS0_iPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 1 barriers, 16 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z11walk_kernelILi8EEvPKfiS1_iPf' for 'sm_90a'
+ptxas info    : Function properties for _Z11walk_kernelILi8EEvPKfiS1_iPf
+    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 32 registers, used 1 barriers, 16 bytes cumulative stack size, 28744 bytes smem
+ptxas info    : Compiling entry function '_Z16lane8x128_kernelPKfiS0_Pf' for 'sm_90a'
+ptxas info    : Function properties for _Z16lane8x128_kernelPKfiS0_Pf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+"""
+
+
+def test_ptxas_figures():
+    from glome_tpu_torch import kernels
+    figs = kernels.ptxas_figures(PTXAS_LOG)
+    assert figs["_Z17dense_fori_kernelPKfiS0_iPf"] == dict(
+        stack_frame=0, spill_stores=0, spill_loads=0, registers=30, smem=16)
+    assert figs["_Z11walk_kernelILi8EEvPKfiS1_iPf"] == dict(
+        stack_frame=16, spill_stores=16, spill_loads=16, registers=32,
+        smem=28744)
+    assert figs["_Z16lane8x128_kernelPKfiS0_Pf"]["smem"] == 0
+    assert MP.find_function(figs, "walk_kernelILi8E").startswith("_Z11")
+    with pytest.raises(KeyError):
+        MP.find_function(figs, "kernel")        # names three
+
+
+def _sass(lines):
+    """cuobjdump -sass text of one function, one instruction per line at
+    0x10 steps (each followed by its control word line, as cuobjdump
+    prints it); a line "label:" labels the next instruction."""
+    out = ["\tcode for sm_90a", "\t\tFunction : _Z3fooPf"]
+    addr = 0
+    for ln in lines:
+        if ln.endswith(":"):
+            out.append(ln)
+            continue
+        out.append(f"        /*{addr:04x}*/                   {ln} ;"
+                   f"            /* 0x000fe20000000f00 */")
+        out.append("                                       "
+                   "/* 0x000fc80000000000 */")
+        addr += 0x10
+    return "\n".join(out)
+
+
+@pytest.mark.parametrize("form", ["address", "label"])
+def test_sass_loops_and_instructions_per_test(form):
+    """An outer loop (0x10..0x90) around an inner one (0x20..0x60) and a
+    later single loop (0xb0..0xe0), branches by address or by label;
+    NOPs are not counted."""
+    def bra(addr, label, pred="@P0 "):
+        return (f"{pred}BRA 0x{addr:x}" if form == "address"
+                else f"{pred}BRA `(.L_x_{label})")
+    lines = ["S2R R0, SR_TID.X",                       # 0x00
+             ".L_x_1:", "IADD3 R1, R1, 0x1, RZ",       # 0x10
+             ".L_x_2:", "FADD R2, R2, R3",             # 0x20
+             "MUFU.RSQ R4, R2", "FMUL R5, R4, R2",     # 0x30, 0x40
+             "@!P1 BRA 0x70" if form == "address" else "@!P1 BRA `(.L_x_9)",
+             bra(0x20, 2),                             # 0x60 inner back edge
+             ".L_x_9:", "ISETP.GE.AND P0, PT, R1, R6, PT",   # 0x70
+             "NOP",                                    # 0x80
+             bra(0x10, 1),                             # 0x90 outer back edge
+             "BAR.SYNC.DEFER_BLOCKING 0x0",            # 0xa0
+             ".L_x_3:", "LDS.128 R8, [R9]",            # 0xb0
+             "FMNMX R10, R10, R8, PT", "FMNMX R11, R11, R9, PT",
+             bra(0xb0, 3),                             # 0xe0
+             "EXIT",                                   # 0xf0
+             ".L_x_4:", bra(0x100, 4, pred="")]        # 0x100 self loop
+    funcs = MP.sass_functions(_sass(lines))
+    instrs = funcs["_Z3fooPf"]
+    assert len(instrs) == 16                           # 17 lines, one NOP
+    assert [i for i in instrs if i[1] == "BRA"][0][2] == 0x70
+    assert MP.innermost_loops(instrs) == [(0x20, 0x60, 5), (0xb0, 0xe0, 4),
+                                          (0x100, 0x100, 1)]
+    assert MP.thread_instructions(instrs, 5) == 1.0    # the 5-instr loop
+    assert MP.hot_loop(instrs) == 5
+    assert MP.thread_instructions(instrs, 0) == 16.0
+    with pytest.raises(ValueError):
+        MP.thread_instructions([(0, "EXIT", None)], 1)
+
+
+def test_issue_floor():
+    """A looping variant issues its instructions per test on every ray of
+    a tile for each of the tests tallied; one with no loop its whole
+    function on every thread of its grid."""
+    loop = [(0, "S2R", None), (0x10, "FADD", None), (0x20, "FMUL", None),
+            (0x30, "LDS", None), (0x40, "BRA", 0x10), (0x50, "EXIT", None)]
+    funcs = {"_Z17dense_fori_kernelPKfiS0_iPf": loop,
+             "_Z16lane8x128_kernelPKfiS0_Pf": loop}
+    b = next(v for v in MP.VARIANTS if v.name == "b_dense_fori")
+    e = next(v for v in MP.VARIANTS if v.name == "e_lane8x128")
+    assert b.per_pass == MP.DENSE_UNROLL and b.grid == MP.SPLIT_GRID
+    ms, per = MP.issue_floor(b, funcs, tests=2 * 1024, tiles=2, sms=132,
+                             clock_mhz=2000.0)
+    assert per == 4 / MP.DENSE_UNROLL
+    # the loop per test per ray, the two instructions outside it per thread
+    assert ms == pytest.approx((per * 2 * 1024 * MP.TILE + 2 * 2 * 4 * 256)
+                               / (132 * 128 * 2000e6) * 1e3)
+    ms, per = MP.issue_floor(e, funcs, tests=0, tiles=3, sms=132,
+                             clock_mhz=1000.0)
+    assert per == 6.0
+    assert ms == pytest.approx(6 * 3 * 1024 / (132 * 128 * 1e9) * 1e3)
+
+
+def test_variants_name_their_builds():
+    """Every variant names one kernel and one C entry, with the grid the
+    entry launches; the C calls carry the tables' pointers and sizes."""
+    rays, pf, pf_lane = (torch.as_tensor(a) for a in MP.make_inputs(1))
+    _krays, nf = (torch.as_tensor(a) for a in KW.make_inputs(1))
+    tables = {"pf": pf, "pf_lane": pf_lane, "nf": nf}
+    symbols = [v.symbol for tool in (MP, KW) for v in tool.VARIANTS]
+    assert len(set(symbols)) == len(symbols) == 15
+    for tool in (MP, KW):
+        for v in tool.VARIANTS:
+            assert v.grid[0] * v.grid[1] in (MP.TILE, MP.TILE // 4,
+                                             2 * MP.TILE)
+            entry, args = tool.c_call(v.name, *(tables[t] for t in v.tables))
+            assert entry.startswith("glome_micro_")
+            if "pf" in v.tables:
+                assert args[:2] == (pf.data_ptr(), MP.P)
+    assert MP.c_call("a_vote_while", pf)[1][2] == MP.STEPS
+    assert KW.c_call("walk_K8", nf) == ("glome_micro_walk",
+                                        (nf.data_ptr(), KW.M, 8))
+    assert KW.c_call("vread_64") == ("glome_micro_vread", (64,))
+    with pytest.raises(ValueError):
+        MP.store_tile(rays, MP.SPLIT_GRID)             # a card kernel
+
+
+def _cu_text(*names):
+    from glome_tpu_torch import kernels
+    text = ""
+    for name in names:
+        with open(os.path.join(kernels.CSRC, name)) as f:
+            text += f.read() + "\n"
+    return text
+
+
+def _cu_constants(text):
+    """{name: value} of the `constexpr int NAME = expr;` lines of a
+    source, in order (C's integer division)."""
+    consts = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        consts[name] = eval(expr.replace("/", "//"), {}, dict(consts))
+    return consts
+
+
+def _cu_launches(text, consts, kernel, arg):
+    """{(blocks per tile, threads)} of the launches `kernel<a><<<T * n,
+    threads, ...` in a source whose template argument a is `arg`, a
+    parameter's name or absent."""
+    found = set()
+    for kern, a, grid, block in re.findall(
+            r"(\w+?)(?:<(\w+)>)?<<<([^,]+),\s*([^,]+),", text):
+        if kern == kernel and (not a or a == arg or not a.isdigit()):
+            found.add((eval(grid, {}, {**consts, "T": 1}),
+                       eval(block, {}, consts)))
+    return found
+
+
+_CU_FILES = {MP: ("micro.cuh", "micro_prims.cu"),
+             KW: ("micro.cuh", "micro_kwide.cu")}
+
+
+@pytest.mark.parametrize("v", [v for tool in (MP, KW) for v in tool.VARIANTS],
+                         ids=lambda v: v.name)
+def test_variant_grid_is_the_launch(v):
+    """Each variant's grid (its issue and launch floors' grid) is the one
+    its C entry launches, and its tests per pass of the hot loop are the
+    kernel's own constants (csrc/micro_prims.cu DENSE_UNROLL, MXU_ACC; a
+    gate's LEAF; a walk's K): the tools' copies of them cannot drift from
+    the sources."""
+    tool = MP if v in MP.VARIANTS else KW
+    text = _cu_text(*_CU_FILES[tool])
+    consts = _cu_constants(text)
+    kern, arg = re.fullmatch(r"(\w+?)(?:ILi(\d+)E)?", v.symbol).groups()
+    assert _cu_launches(text, consts, kern, arg) == {v.grid}
+    per_pass = {"dense_fori_kernel": consts.get("DENSE_UNROLL"),
+                "mxu128_kernel": consts.get("MXU_ACC"),
+                "gated_kernel": int(arg or 0), "walk_kernel": int(arg or 0)}
+    assert v.per_pass == per_pass.get(kern, v.per_pass)
+    if kern in ("dense_fori_kernel", "lane8x128_kernel"):
+        assert v.grid == MP.SPLIT_GRID == (consts["SPLIT"],
+                                           consts["SPLIT_THREADS"])
+    if kern == "mxu128_kernel":
+        assert v.grid == MP.MXU_GRID
+        assert MP.MXU_PASS == consts["MXU_ACC"]
+    if kern == "dense_fori_kernel":
+        assert MP.DENSE_UNROLL == consts["DENSE_UNROLL"]
+
+
+def test_moved_bytes():
+    """A variant's bound moves what its function needs: vread<N> its
+    output and the 32-byte sectors of its N elements of each tile's ox
+    (one per element for N = 16 and 64), every other variant its ray
+    components and tables whole and its output."""
+    inp = {k: torch.as_tensor(a) for k, a in
+           zip(("rays", "pf", "pf_lane"), MP.make_inputs(3))}
+    kin = {k: torch.as_tensor(a) for k, a in
+           zip(("rays", "nf"), KW.make_inputs(3))}
+    out = 4 * 3 * MP.TILE
+    for n in KW.NREADS:
+        addrs = {(i % 8) * 128 + (i * 13) % 128 for i in range(n)}
+        assert len(addrs) == n
+        assert KW.vread_sectors(n) == len({4 * a // 32 for a in addrs}) == n
+        v = next(v for v in KW.VARIANTS if v.name == f"vread_{n}")
+        assert MP.moved_bytes(v, kin) == out + 3 * 32 * n
+    walk = KW.VARIANTS[0]
+    assert MP.moved_bytes(walk, kin) == out + 6 * out + 4 * 6 * KW.M
+    b = next(v for v in MP.VARIANTS if v.name == "b_dense_fori")
+    assert MP.moved_bytes(b, inp) == out + 7 * out + 4 * 4 * MP.P
+    f = next(v for v in MP.VARIANTS if v.name == "f_mxu128")
+    assert MP.moved_bytes(f, inp) == out + 7 * out + 4 * 4 * 1024
+
+
+def test_kernel_ab_checks_micro_entries(tmp_path):
+    """kernel_ab compares M1/M2 with an earlier tree only where every
+    variant's C entry is declared as this checkout declares it."""
+    from glome_tpu_torch import kernels
+    from glome_tpu_torch.tools import kernel_ab as KAB
+    csrc = tmp_path / "glome_tpu_torch" / "csrc"
+    csrc.mkdir(parents=True)
+    for name in ("micro_prims.cu", "micro_kwide.cu"):
+        with open(os.path.join(kernels.CSRC, name)) as f:
+            (csrc / name).write_text(f.read())
+    assert KAB.old_designs(str(csrc)) == {"micro_prims.cu": "variant entries",
+                                         "micro_kwide.cu": "variant entries"}
+    assert set(KAB.micro_entries(str(csrc), "micro_prims.cu")) == set(
+        kernels.MICRO_PRIMS_ENTRIES)
+    text = (csrc / "micro_prims.cu").read_text().replace(
+        "glome_micro_gate16(const float* rays, int T,",
+        "glome_micro_gate16(const float* rays, long T,")
+    (csrc / "micro_prims.cu").write_text(text)
+    with pytest.raises(ValueError, match="glome_micro_gate16"):
+        KAB.micro_entries(str(csrc), "micro_prims.cu")
