@@ -25,7 +25,10 @@ micro_kwide), and checks them in phases:
   3. K1 against mega_select_plain on the card, on the all-phase-kinds
      scene, the CSG scene, TestScene's 345,600 primary rays (L0) and the
      200-sphere chain (phasescene.chain_scene: a bvh2 tree of depth 47,
-     walked with a plan-sized stack), intersect and shadow;
+     walked with a plan-sized stack), intersect and shadow; and the
+     TestScene compiled frame's own six K1 batches (each level's
+     intersect and fused shadow table at its static width, recorded from
+     its capture frame's warm-ups) on every lane, the dead lanes exactly;
   4. TestScene frame: 720x480, depth 3, through the kernels: 6 K1
      launches, no K2-K5 launch, no plain call, zero overflow, and within
      the drift canaries of out/testscene_tpu.png;
@@ -54,7 +57,11 @@ micro_kwide), and checks them in phases:
      cast_shadows (K1 + K3): launch counts, no plain call, zero
      overflow, a finite image, and every 8th pixel against the same
      scene rendered through the plain set at 240x135 (the same rays)
-     under the canaries;
+     under the canaries; each frame is a compiled tracer's capture
+     frame, and every K1, K2 and K3 call it made is held against the
+     plain version on its own static-width inputs: a 65,536-lane subset
+     spread over the batch, and every dead lane exactly (the plain
+     version on 4,096 of them, whose inputs are all the same);
  10. mesh timing with CUDA events: the 100k frames (ms, primary
      Mrays/s), one K2 and one K3 launch on their L0 batches against one
      plain launch on the 65,536-ray subset, each mesh through both
@@ -200,7 +207,11 @@ micro_kwide), and checks them in phases:
      megakernel route; 1 K4 + 1 K5 per batch on the group route; 30 K1
      per AA frame; 6 K1 per config 5 step), no plain call; the rows'
      device ms, with "(outside any stage)", sum to the profiler's
-     device time within 1%;
+     device time within 1%.  Then the compiled frame (--frame compiled)
+     of the TestScene frame and the mesh100k self-shadowing frame (as
+     bench's frames: the trace of rays built once) and the AA frame: capture s, replay ms, one profiled replay frame's device
+     busy time and kernels' ms; gates: equal to the eager frame, no
+     capture in a replay frame, its launches as above, no plain call;
  31. the benchmark report, run right after phase 2 (the libraries
      built): python -m glome_tpu_torch.tools.bench as a subprocess, the
      port of the repository's bench.py (the TestScene headline, the
@@ -217,9 +228,10 @@ micro_kwide), and checks them in phases:
      262,144 rays, depth 3, through parallel.sharded_render_fn on 1, 2,
      4 and 8 gloo ranks sharing the card; every rank pinned to one core,
      then rank r on core r).  It must exit 0, its gates held (each
-     rank's gathered frame equal to the one-rank frame on every ray, 2
+     rank's gathered frame equal to the one-rank frame on every ray, 6
      K1 launches per rank per frame (simple_scene's deeper levels are
-     empty) and no plain call, zero overflow),
+     empty, and the compiled frame runs them as batches of dead lanes)
+     and no plain call, zero overflow),
      and print one JSON payload with every key of SCALING.json plus the
      port's own, every reading positive; each count's line (with the
      all-gather's share) and the payload are printed here, and each
@@ -229,6 +241,25 @@ micro_kwide), and checks them in phases:
      32,768 of 8 and the first shadow batch against the plain version
      (as phase 3 holds K1), its ms and plain ms on the 262,144 rays, and
      its bound from the tally, as the kernels line's "scaling_*" keys.
+ 33. the compiled frame (graphs.py; WavefrontTracer(frame=COMPILED), the
+     tracers' default, which phases 4, 9, 21 and 23-32 already run;
+     phases 3 and 9 hold K1, K2 and K3 against their plain versions on
+     the compiled frame's own inputs, recorded from its capture frame's
+     warm-ups: the static-width tables with their dead lanes; phase 30
+     profiles one replay frame of TestScene, mesh100k and AA):
+     compiled and eager frames in turns on the same inputs -- TestScene
+     720x480 depth 3 through Renderer.render and as bench's frame
+     (tracer.trace on rays built once), the 1080p mesh frames as bench's
+     (100k without and with self-shadowing, 250k) and the 720x480 AA
+     frame.  Gates: every compiled frame equal to the eager frame,
+     zero captures after the first frame, and the capture frame's and a
+     replay frame's launches as the eager frame's (6 K1; 2 K1 + 1 / 2
+     K2; 2 K1 + 2 K3; 30 K1), no plain call, each under
+     "compiled_<frame>[_capture]" in launches_by_path.
+     Prints each frame's replay and eager ms (medians in turns), the
+     capture frame's seconds, captures and host reads per frame, the
+     level widths and the graph pools' bytes beside
+     torch.cuda.max_memory_allocated.
 
 Phases 10, 16 and 22 take their profiled frame and per-launch
 host/device split from the same tool (profile_kernels, launch_split).
@@ -278,6 +309,8 @@ RTOL, ATOL = 5e-5, 1e-4       # tests/test_mega.py:123-124
 AGREE_MIN = 0.999
 CANARY_MEAN, CANARY_FRAC = 3.0, 0.006   # tests/test_golden.py:129-131
 SUBSET = 65536
+PLAIN_CHUNK = 262144          # lanes per plain K1 call over a whole batch
+DEAD_SAMPLE = 4096            # dead lanes the plain version runs on
 DEVICE = ("cuda", 0)
 MESH_RES = (1920, 1080)
 PLAIN_RES = (240, 135)        # every 8th pixel of MESH_RES: the same rays
@@ -394,6 +427,7 @@ def main():
                                                    tie_grid_rays,
                                                    tie_grid_scene,
                                                    warp_lights_scene)
+    from glome_tpu_torch.graphs import COMPILED, EAGER
     from glome_tpu_torch.trace import _light_arrays
     from glome_tpu_torch.trace_wavefront import shadow_rays
 
@@ -633,6 +667,117 @@ def main():
         torch.cuda.synchronize()
         return as_np(k), as_np(p)
 
+    # -- the compiled frame's own kernel inputs ----------------------------
+    class Tap:
+        """A select wrapper standing in for K1, K2 or K3 where the path
+        looks it up: it records the inputs of each call made outside a
+        CUDA graph capture (a compiled segment's eager warm-up makes
+        them; its capture only records them) and calls the wrapper.  Its
+        counters are the wrapper's."""
+
+        def __init__(self, name, fn, log):
+            self.__dict__.update(name=name, fn=fn, log=log)
+
+        def __call__(self, *args):
+            if not torch.cuda.is_current_stream_capturing():
+                self.log.append((self.name, [
+                    a.clone() if torch.is_tensor(a) else a for a in args]))
+            return self.fn(*args)
+
+        def __getattr__(self, k):
+            return getattr(self.__dict__["fn"], k)
+
+        def __setattr__(self, k, v):
+            setattr(self.fn, k, v)
+
+    tapped = ((MK, "mega_select"), (BK, "block_select"),
+              (MSH, "mesh_block_select"))
+    plain_of = {"mega_select": MK.mega_select_plain,
+                "block_select": BK.block_select_plain,
+                "mesh_block_select": MSH.mesh_block_select_plain}
+    # where the rays (and the seed) stand in each kernel's arguments
+    rays_at = {"mega_select": 1, "block_select": 3, "mesh_block_select": 2}
+    seed_at = {"block_select": 4, "mesh_block_select": 3}
+
+    def record_inputs(run):
+        """(run()'s result, [(kernel, arguments)] of every K1-K3 call run
+        made outside a capture): run on a fresh compiled tracer is its
+        capture frame, whose warm-ups launch each segment's kernels
+        eagerly on the segment's own inputs at their static widths."""
+        log = []
+        saved = [getattr(m, n) for m, n in tapped]
+        for m, n in tapped:
+            setattr(m, n, Tap(n, getattr(m, n), log))
+        try:
+            out = run()
+            torch.cuda.synchronize()
+        finally:
+            for (m, n), f in zip(tapped, saved):
+                setattr(m, n, f)
+        return out, log
+
+    def lanes_args(name, args, ix):
+        """A kernel's arguments with the rays (and seed) cut to lanes ix."""
+        a = list(args)
+        a[rays_at[name]] = a[rays_at[name]][:, ix].contiguous()
+        if name in seed_at:
+            a[seed_at[name]] = a[seed_at[name]][ix].contiguous()
+        return a
+
+    def check_recorded(label, log, every_lane):
+        """Each recorded call's kernel against its plain version on the
+        same arguments, as phases 3, 7 and 8 hold them (K1 within its
+        agreement and tolerance, K2 and K3 exactly), on every lane
+        (every_lane: plain in chunks of PLAIN_CHUNK lanes) or on SUBSET
+        lanes spread over the whole batch.  The dead lanes (tmax 0, sid
+        -1) are held exactly: every_lane compares each one; otherwise
+        the plain version runs on DEAD_SAMPLE of them, whose inputs are
+        all the same (o 0, d the guard's unit z, seed 0), must give one
+        output, and every dead lane's kernel output must be it."""
+        ok = True
+        for i, (name, args) in enumerate(log):
+            rays, shadow = args[rays_at[name]], args[-1]
+            n = rays.shape[1]
+            dead = ((rays[6] == 0) & (rays[7] == -1)).cpu().numpy()
+            k = as_np(kernel_fns[name](*args))
+            if every_lane:
+                parts = [as_np(plain_of[name](*lanes_args(
+                    name, args, torch.arange(s0, min(s0 + PLAIN_CHUNK, n),
+                                             device=dev))))
+                         for s0 in range(0, n, PLAIN_CHUNK)]
+                p = [None if parts[0][j] is None else
+                     np.concatenate([q[j] for q in parts])
+                     for j in range(len(parts[0]))]
+                kk = k
+            else:
+                ix = subset(n)
+                p = as_np(plain_of[name](*lanes_args(name, args, ix)))
+                kk = [None if a is None else a[ix.cpu().numpy()] for a in k]
+            mode = "shadow" if shadow else "intersect"
+            good, _err = compare(
+                f"{label} call {i}: {name} {mode}, {n} lanes "
+                f"({int(dead.sum())} dead), "
+                f"{'every lane' if every_lane else f'{len(p[0])} lanes'} "
+                f"checked", kk, p, shadow, exact=name != "mega_select")
+            if every_lane:
+                dead_ok = all(a is None or np.array_equal(a[dead], b[dead])
+                              for a, b in zip(k, p))
+            elif dead.any():
+                di = np.flatnonzero(dead)
+                di = di[np.linspace(0, len(di) - 1,
+                                    min(len(di), DEAD_SAMPLE)).astype(int)]
+                pd = as_np(plain_of[name](*lanes_args(
+                    name, args, torch.as_tensor(di, device=dev))))
+                dead_ok = all(a is None or (len(np.unique(b)) == 1
+                                            and bool((a[dead] == b[0]).all()))
+                              for a, b in zip(k, pd))
+            else:
+                dead_ok = True
+            print(f"    dead lanes: every output the plain version's "
+                  f"{dead_ok}")
+            ok &= good and dead_ok
+        return ok
+
     # -- 3. K1 against the plain version ------------------------------------
     def p_compare():
         ok = True
@@ -682,6 +827,18 @@ def main():
             k, p = both(ctabs, rays, shadow)
             ok &= compare(f"chain {'shadow' if shadow else 'intersect'}", k,
                           p, shadow)[0]
+        # the compiled frame's own K1 batches: every level's intersect and
+        # fused shadow table at its static width (level 0 at whole rows,
+        # the deeper levels on the ladder, the shadow batch L x B with its
+        # dead tail), as its capture frame's warm-ups launch them
+        _out, log = record_inputs(lambda: T.Renderer(
+            T.WavefrontTracer(compiled, cfg, frame=COMPILED), cam,
+            cfg).render(arrays))
+        print(f"  TestScene compiled frame: {len(log)} K1 batches, widths "
+              f"{[a[rays_at[n]].shape[1] for n, a in log]}")
+        ok &= (len(log) == 2 * cfg.maxdepth
+               and all(n == "mega_select" for n, _a in log)
+               and check_recorded("TestScene compiled frame", log, True))
         return ok
     phase("3 K1 vs plain", p_compare)
 
@@ -996,7 +1153,9 @@ def main():
         path = f"mesh{n_tris // 1000}k_1080p_cast{int(cast_shadows)}"
         renderer = T.Renderer(T.WavefrontTracer(cc, mcfg), c, mcfg)
         reset_counts()
-        rgb, depth = renderer.render(garrs)
+        # the compiled frame's capture frame: its warm-ups' kernel inputs
+        # are recorded and held against the plain versions below
+        (rgb, depth), log = record_inputs(lambda: renderer.render(garrs))
         counts = read_counts(path)
         ov = int(renderer.last_overflow.sum())
         img = rgb.cpu().numpy()
@@ -1015,6 +1174,11 @@ def main():
                          f"{PLAIN_RES[0]}x{PLAIN_RES[1]}",
                          quantize(img[::step, ::step]),
                          quantize(rp.cpu().numpy()))
+        print(f"  {path} compiled frame: calls "
+              f"{[(n, a[rays_at[n]].shape[1]) for n, a in log]}")
+        ok &= (sorted(n for n, _a in log)
+               == sorted(k for k, v in want.items() for _ in range(v))
+               and check_recorded(f"{path} compiled frame", log, False))
         return (ok and finite and ov == 0 and counts["plain"] == 0
                 and img.shape == (MESH_RES[1], MESH_RES[0], 3)
                 and all(counts[k] == want.get(k, 0) for k in kernel_fns)
@@ -2353,6 +2517,32 @@ def main():
                   f"stage of the path {not rep.missing}; the same result "
                   f"as without the wrappers: {rep.same}")
             ok &= (launches_ok and part_ok and rep.same and not rep.missing)
+        # the compiled frame's replay (--frame compiled): one profiled
+        # replay frame's device busy time and kernels, its launches,
+        # captures and host reads
+        for (name, run, erun, tr), want in (
+                (PF.compiled_workload("TestScene 720x480 depth 3, bench's "
+                                      "frame", compiled, arrays, cam, cfg),
+                 {"K1": 2 * cfg.maxdepth}),
+                (PF.compiled_workload("mesh100k 1920x1080 depth 1 "
+                                      "self-shadowing, bench's frame", mc,
+                                      ma, mcam, mcfg),
+                 {"K1": 2, "K2": 2}),
+                (PF.compiled_workload("AA TestScene 720x480 depth 3",
+                                      compiled, arrays, cam, cfg, aa=True),
+                 {"K1": 30})):
+            rep = PF.profile_compiled(name, run, erun, tr, dev, smi_line)
+            good = (rep.same and rep.per_frame["captures"] == 0
+                    and all(rep.counts[f"K{i + 1}"] == want.get(
+                        f"K{i + 1}", 0) for i in range(len(mk)))
+                    and not any(v for k, v in rep.counts.items()
+                                if "plain" in k))
+            print(f"  {name}, compiled frame: launches as expected {want}, "
+                  f"no plain call, no capture, equal to the eager frame "
+                  f"-> {'ok' if good else 'FAIL'}")
+            ok &= good
+            del tr, run, erun
+            torch.cuda.empty_cache()
         return ok
     phase("30 the frame-profiling tool (python -m "
           "glome_tpu_torch.tools.profile_frame) on every path", p_profile)
@@ -2433,6 +2623,144 @@ def main():
         return ok
     phase("32 scaling: python -m glome_tpu_torch.tools.scaling_bench",
           p_scaling)
+
+    # -- 33. the compiled frame ----------------------------------------------
+    def frame_ms(fn):
+        """(output, ms) of one frame timed alone by CUDA events (the end
+        event waits for the host's last launch)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def compiled_case(name, make, want, reps=3):
+        """make(frame) -> (tracer, frame function returning a tuple of
+        tensors).  The compiled and the eager frame in turns on the same
+        inputs: the capture frame, then compiled, eager, eager, compiled
+        ... (reps of each, timed); every compiled frame equal to the eager
+        frame on every lane, zero captures after the first, and the
+        launches of the capture frame and of one replay frame (counts
+        reset just before each) as `want`, no plain call.  Captures,
+        replays and host reads per frame are the tracer's GraphCache
+        totals over the frame (the AA frame traces five times)."""
+        ctracer, cframe = make(COMPILED)
+        etracer, eframe = make(EAGER)
+        totals = ctracer.graphs.totals
+
+        def per_frame(fn):
+            before = dict(totals)
+            out = fn()
+            return out, {k: totals[k] - before[k] for k in totals}
+        reset_counts()
+        t0 = time.perf_counter()
+        first, first_stats = per_frame(cframe)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        ccounts = read_counts(f"compiled_{name}_capture")
+        widths = ctracer.last_frame.get("widths")
+        eager = eframe()
+        torch.cuda.synchronize()
+        same = [all(torch.equal(a, b) for a, b in zip(first, eager))]
+        worst = 0.0
+        reset_counts()
+        out, st = per_frame(cframe)
+        counts = read_counts(f"compiled_{name}")
+        stats = [st]
+        same.append(all(torch.equal(a, b) for a, b in zip(out, eager)))
+        cms, ems = [], []
+        for i in range(2 * reps):
+            for frame in (("c", "e") if i % 2 == 0 else ("e", "c")):
+                if frame == "c":
+                    (res, ms), st = per_frame(lambda: frame_ms(cframe))
+                    cms.append(ms)
+                    stats.append(st)
+                    same.append(all(torch.equal(a, b)
+                                    for a, b in zip(res, eager)))
+                else:
+                    _res, ms = frame_ms(eframe)
+                    ems.append(ms)
+        for a, b in zip(out, eager):
+            if a.is_floating_point():
+                worst = max(worst, float((a - b).abs().max()))
+        captures = [st["captures"] for st in stats]
+        reads = sorted({st["host_reads"] for st in stats})
+        pool = ctracer.graphs.pool_bytes()
+        cmed = sorted(cms)[len(cms) // 2]
+        emed = sorted(ems)[len(ems) // 2]
+        print(f"  [{smi_line}] {name}: replay {cmed:.3f} ms, eager "
+              f"{emed:.3f} ms (medians of {len(cms)}; replay "
+              f"{', '.join(f'{m:.3f}' for m in cms)}; eager "
+              f"{', '.join(f'{m:.3f}' for m in ems)}), {emed / cmed:.2f}x; "
+              f"capture frame {capture_s:.3f} s ({first_stats['captures']} "
+              f"segments captured); captures per later frame {captures}; "
+              f"host reads per frame {reads}; widths {widths}; pool {pool} "
+              f"bytes, {len(ctracer.graphs)} segments cached, "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated()}")
+        print(f"    every compiled frame equal to the eager frame on every "
+              f"lane: {all(same)} ({same.count(False)} of {len(same)} "
+              f"differ; max |diff| of the replay {worst})")
+        compiled_frames[name] = dict(
+            replay_ms=cmed, eager_ms=emed, capture_s=capture_s,
+            captures=captures, host_reads=reads, pool_bytes=pool,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            equal=all(same), max_abs_diff=worst)
+        ok = (all(same) and not any(captures)
+              and all(c[k] == want.get(k, 0) for k in kernel_fns
+                      for c in (ccounts, counts))
+              and ccounts["plain"] == counts["plain"] == 0)
+        del ctracer, etracer
+        torch.cuda.empty_cache()
+        return ok
+
+    compiled_frames = {}
+
+    def p_compiled():
+        ok = True
+
+        def render_case(cc, garrs, c, rcfg):
+            def make(frame):
+                r = T.Renderer(T.WavefrontTracer(cc, rcfg, frame=frame), c,
+                               rcfg)
+                return r.tracer, lambda: r.render(garrs)
+            return make
+
+        # bench's frame: tracer.trace on bench.py's rays (built once, in
+        # tile order), origins jittered by a fixed mean colour
+        def bench_case(cc, garrs, c, rcfg):
+            def make(frame):
+                tr = T.WavefrontTracer(cc, rcfg, frame=frame)
+                o, d, _perm = BENCH.frame_rays(T.Renderer(tr, c, rcfg), dev)
+                oj = o + torch.tensor([0.21, 0.17, 0.13], device=dev) * 1e-4
+                return tr, lambda: tuple(tr.trace(garrs, oj, d))[:4]
+            return make
+
+        ok &= compiled_case("testscene_720x480_render",
+                            render_case(compiled, arrays, cam, cfg),
+                            {"mega_select": 2 * cfg.maxdepth})
+        ok &= compiled_case("testscene_720x480_bench",
+                            bench_case(compiled, arrays, cam, cfg),
+                            {"mega_select": 2 * cfg.maxdepth})
+        for n_tris, cast, want in (
+                (100_000, False, {"mega_select": 2, "block_select": 1}),
+                (100_000, True, {"mega_select": 2, "block_select": 2}),
+                (250_000, True, {"mega_select": 2, "mesh_block_select": 2})):
+            cc, garrs, _mp, c, _grp = mesh(n_tris, cast)
+            ok &= compiled_case(
+                f"mesh{n_tris // 1000}k_1080p_cast{int(cast)}_bench",
+                bench_case(cc, garrs, c, mcfg), want)
+
+        def aa_case(frame):
+            a = T.AARenderer(T.WavefrontTracer(compiled, cfg, frame=frame),
+                             cam, cfg)
+            return a.tracer, lambda: a.render(arrays)
+        ok &= compiled_case("aa_testscene_720x480", aa_case,
+                            {"mega_select": 5 * 2 * cfg.maxdepth})
+        return ok
+    phase("33 compiled frame: the wavefront frame captured as CUDA graphs "
+          "and replayed, against the eager frame", p_compiled)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

@@ -8,9 +8,12 @@ ray and print the tag stack of the hit object (the reference's mouse
 handler, Glome.hs:416-438).
 
 It runs on the CUDA device unless --device cpu is given, and stops
-when CUDA is missing.  glome_tpu's persistent executable cache
-(cache.py) has no counterpart: eager torch traces no program, and the
-kernels' own build cache (kernels.build_key) is the set-up cache.
+when CUDA is missing.  The wavefront tracer runs its compiled frame
+(each level captured once as CUDA graphs and replayed, graphs.py, the
+counterpart of glome_tpu's jitted frame and cache.py; its static-width
+levels run eagerly on the CPU).  Nothing persists across processes: the
+graphs are captured by the first frame of each width, and the kernels'
+own build cache (kernels.build_key) is the set-up cache.
 
 Usage:
   python -m glome_tpu_torch.app [--scene test|simple|path.nff]

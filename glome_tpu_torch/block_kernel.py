@@ -190,13 +190,19 @@ def pack_cons(plan: BlockPlan, sc, garrs, device) -> torch.Tensor:
     from .compile import group_device_params
     if not plan.cons_spec:
         return torch.zeros(1, dtype=torch.float32, device=device)
+    # the member index arrays on the device, cached per device: a
+    # captured frame must not copy from the host
+    cache = plan.__dict__.setdefault("_dev_cons_idx", {})
+    if str(device) not in cache:
+        cache[str(device)] = [torch.as_tensor(idx, device=device)
+                              for _gi2, idx in plan.cons_spec]
     parts = []
-    for gi2, idx in plan.cons_spec:
+    for (gi2, _idx), idx_t in zip(plan.cons_spec, cache[str(device)]):
         g2 = sc.groups[gi2]
         ga = {k: v.detach() for k, v in
               group_device_params(g2, garrs[gi2]).items()}
         rows = _rows(g2.ptype, ga, g2.m_inv is not None)
-        parts.append(rows[torch.as_tensor(idx, device=device)].reshape(-1))
+        parts.append(rows[idx_t].reshape(-1))
     return torch.cat(parts)
 
 

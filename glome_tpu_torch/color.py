@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .vec import const
+
 
 def colora(r, g, b, a):
     parts = torch.broadcast_tensors(*(torch.as_tensor(c, dtype=torch.float32)
@@ -28,7 +30,8 @@ def ca_black(shape=(), dtype=torch.float32, device=None):
 
 def cascale(c, s):
     """Scale rgb, leave alpha (reference Clr.hs:48-50)."""
-    s = torch.as_tensor(s, dtype=c.dtype, device=c.device)
+    s = (torch.as_tensor(s, dtype=c.dtype, device=c.device)
+         if torch.is_tensor(s) else const(s, c.dtype, c.device))
     return torch.cat([c[..., :3] * s[..., None], c[..., 3:]], dim=-1)
 
 
@@ -38,7 +41,9 @@ def aclamp(x):
 
 def caweight(c1, c2, weight):
     """Lerp: c1*w + c2*(1-w) on all four channels (reference Clr.hs:87-91)."""
-    w = torch.as_tensor(weight, dtype=c1.dtype, device=c1.device)[..., None]
+    w = (torch.as_tensor(weight, dtype=c1.dtype, device=c1.device)
+         if torch.is_tensor(weight)
+         else const(weight, c1.dtype, c1.device))[..., None]
     return c1 * w + c2 * (1.0 - w)
 
 

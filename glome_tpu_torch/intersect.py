@@ -51,7 +51,7 @@ from . import megakernel as MK
 from .compile import (TAG_DEPTH, TEX_DEPTH, group_accel,
                       materialize_scene_params)
 from .config import DELTA, INFINITY
-from .vec import finite_grad, vnorm, vscaleadd
+from .vec import const, finite_grad, vnorm, vscaleadd
 from .xfm import apply_normal_T, apply_point, apply_vector
 
 INF = INFINITY
@@ -878,8 +878,7 @@ def _guard_dead(table):
     scene-parameter gradient."""
     d = table[3:6]
     dead = torch.sum(d * d, dim=0) == 0.0
-    unit = torch.tensor([0.0, 0.0, 1.0], dtype=table.dtype,
-                        device=table.device)[:, None]
+    unit = const((0.0, 0.0, 1.0), table.dtype, table.device)[:, None]
     return torch.cat([table[0:3], torch.where(dead[None], unit, d),
                       table[6:8]], dim=0)
 

@@ -43,6 +43,7 @@ import torch
 
 from .config import DELTA, INFINITY
 from . import accel as A
+from .vec import const
 
 INF = INFINITY
 
@@ -993,6 +994,18 @@ def _static_tables(plan: MegaPlan, device):
     return cache[key]
 
 
+def _plan_index(plan: MegaPlan, spec: str, i: int, idx, device):
+    """Device copy (int64) of entry i's row index array of plan.<spec>
+    (pf_spec's idx, pbox_spec's perm), cached on the plan per device:
+    pack_tables runs inside every captured frame, which must not copy
+    from the host."""
+    cache = plan.__dict__.setdefault("_dev_idx", {})
+    key = (spec, i, str(device))
+    if key not in cache:
+        cache[key] = torch.as_tensor(idx, dtype=torch.int64, device=device)
+    return cache[key]
+
+
 def _param_rows(g, ga, dtype):
     """(P, F) rows of a group: FIELDS columns [+ 12 inverse-matrix]."""
     cols = []
@@ -1012,14 +1025,13 @@ def pack_tables(plan: MegaPlan, compiled, arrays) -> PlanTables:
     lights = arrays["lights"]["pos"]
     device = lights.device
     parts = []
-    for si, gi, idx, F in plan.pf_spec:
+    for i, (si, gi, idx, F) in enumerate(plan.pf_spec):
         g = compiled.scenes[si].groups[gi]
         ga = {k: v.detach() for k, v in
               group_device_params(g, arrays["scenes"][si][gi]).items()}
         rows = _param_rows(g, ga, torch.float32)
         if idx is not None:
-            rows = rows[torch.as_tensor(idx, dtype=torch.int64,
-                                        device=device)]
+            rows = rows[_plan_index(plan, "pf_spec", i, idx, device)]
         parts.append(rows.reshape(-1))
     pf = (torch.cat(parts) if parts
           else torch.zeros(1, dtype=torch.float32, device=device))
@@ -1038,15 +1050,14 @@ def pack_tables(plan: MegaPlan, compiled, arrays) -> PlanTables:
     bb = (torch.stack(bb_rows).to(torch.float32) if bb_rows
           else torch.zeros((1, 8), dtype=torch.float32, device=device))
     pbox_rows = []
-    for _i, si, gi, perm in plan.pbox_spec:
+    for i, (_i, si, gi, perm) in enumerate(plan.pbox_spec):
         g = compiled.scenes[si].groups[gi]
         ga = {k: v.detach() for k, v in
               group_device_params(g, arrays["scenes"][si][gi]).items()}
         boxes = padded_prim_aabb(
             g.ptype, {k: v for k, v in ga.items()
                       if k not in ("m_inv", "m_fwd")}, ga.get("m_fwd"))
-        boxes = boxes[torch.as_tensor(perm, dtype=torch.int64,
-                                      device=device)]
+        boxes = boxes[_plan_index(plan, "pbox_spec", i, perm, device)]
         pbox_rows.append(torch.cat([boxes, boxes.new_zeros((len(perm), 2))],
                                    dim=-1))
     pbox = (torch.cat(pbox_rows).to(torch.float32) if pbox_rows
@@ -1552,8 +1563,7 @@ def finalize(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux=None,
         any_xf = any_xf | (cid == k)
     any_xf = any_xf & hit
     if xf_cids:
-        ident12 = torch.tensor([1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0],
-                               dtype=dt, device=dev)
+        ident12 = const((1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0), dt, dev)
         m12 = torch.where(any_xf[:, None], prow[:, FW:FW + 12], ident12)
         m = [m12[:, q] for q in range(12)]
         ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]

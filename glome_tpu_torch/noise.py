@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .vec import vdot
+from .vec import const, vdot
 
 
 # -- interpolation functions (Texture.hs:11-28) ----------------------------
@@ -36,8 +36,7 @@ def lump_wave(x):
 
 def stripe(pos, axis, interp):
     """Scalar stripe field: interp(dot(pos, axis)) (Texture.hs:35-40)."""
-    return interp(vdot(pos, torch.as_tensor(axis, dtype=pos.dtype,
-                                            device=pos.device)))
+    return interp(vdot(pos, const(axis, pos.dtype, pos.device)))
 
 
 # -- Perlin noise (Texture.hs:43-116) --------------------------------------
@@ -71,8 +70,8 @@ def noise(p):
     the 8 lattice-corner knots, with the hash lookups shared between
     corners computed once (a(k) has 2 values, b(j, a) 4) and the last
     permutation fused with the gradient table."""
-    phi = torch.as_tensor(_PHI, dtype=torch.int64, device=p.device)
-    gradphi = torch.as_tensor(_GRADPHI, dtype=p.dtype, device=p.device)
+    phi = const(_PHI, torch.int64, p.device)
+    gradphi = const(_GRADPHI, p.dtype, p.device)
     ijk = torch.floor(p)
     i = ijk[..., 0].to(torch.int64)
     j = ijk[..., 1].to(torch.int64)

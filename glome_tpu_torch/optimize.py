@@ -20,6 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .graphs import EAGER
 from .trace import Tracer
 
 CKPT_KEEP = 2
@@ -35,7 +36,8 @@ class OptimizeResult:
 
 def pixel_loss_fn(tracer: Tracer):
     def loss(arrays, o, d, target_rgb):
-        res = tracer.trace(arrays, o, d)
+        # the gradient needs the eager frame
+        res = tracer.trace(arrays, o, d, frame=EAGER)
         rgb = res.color[..., :3] * res.color[..., 3:4]
         return torch.mean((rgb - target_rgb) ** 2)
     return loss

@@ -31,6 +31,7 @@ import torch
 import torch.distributed as dist
 
 from ..optimize import tree_leaves, tree_map
+from ..graphs import EAGER
 from ..trace import Tracer
 
 
@@ -148,7 +149,8 @@ def sharded_train_step_fn(tracer: Tracer, mesh, lr: float = 1e-2):
         sl = _shard(mesh, n_global)
         params = tree_map(lambda p: p.detach().clone().requires_grad_(
             p.is_floating_point()), arrays)
-        res = tracer.trace(params, o[sl], d[sl])
+        # the step's gradient needs the eager frame
+        res = tracer.trace(params, o[sl], d[sl], frame=EAGER)
         rgb = res.color[..., :3] * res.color[..., 3:4]
         loss = torch.sum((rgb - target_rgb[sl]) ** 2) / n_global
         loss.backward()

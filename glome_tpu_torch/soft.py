@@ -48,6 +48,7 @@ import torch
 
 from .compile import TAG_DEPTH, TEX_DEPTH, group_device_params
 from .config import INFINITY
+from .graphs import EAGER
 from .intersect import Hit
 from .trace import Tracer, _light_arrays
 from .vec import vcross, vdot, vnorm, vscaleadd
@@ -497,7 +498,8 @@ class SoftTracer:
 
     def render(self, arrays, o, d):
         """(N, 4) soft-coverage color."""
-        res = self.tracer.trace(arrays, o, d)
+        # the soft loss's gradient needs the eager frame
+        res = self.tracer.trace(arrays, o, d, frame=EAGER)
         if self.tau <= 0.0:
             return res.color
         dt, dev = o.dtype, o.device

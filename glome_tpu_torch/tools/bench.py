@@ -25,7 +25,10 @@ What a frame is, as in bench.py: tracer.trace on rays built once, every
 pixel in render.tile_order order through Renderer.rays_for_pixels, each
 frame's origins jittered by the previous frame's mean colour
 (o + prev * 1e-4; the AA frame jitters the light positions by
-prev * 1e-6).  So the per-frame numpy ray set-up of Renderer.render is
+prev * 1e-6, in place).  The tracers run their default frame, the
+compiled one (graphs.py: each level captured once as CUDA graphs and
+replayed; a frame's jittered origins are copied into the first level's
+static buffer); on the CPU its static-width levels run eagerly.  So the per-frame numpy ray set-up of Renderer.render is
 not in the number.  Each frame is timed alone, with CUDA events
 recorded before and after its launches: the frames are host-bound, so
 the end event waits for the host's last launch and the reading is the
@@ -36,7 +39,8 @@ which the card does not have.)
 
 compile_s counts the set-up and the first frame: compile_scene, the
 megakernel plan, the kernels' nvcc builds, the native builder's g++
-build and the warm-up frame.  compile_cache reads "cold" when this
+build and the warm-up frame, which on the card also captures the
+compiled frame's graphs (aa_compile_s likewise for the AA frame's).  compile_cache reads "cold" when this
 process built a kernel library or the native builder
 (kernels.BUILD_INFO, native.BUILD_INFO), "warm" otherwise, as
 glome_tpu/cache.py names its states; build_s, the nvcc and g++
@@ -265,6 +269,16 @@ def time_frames(frame, device, reps):
     return ms
 
 
+def timed_captures(name, tracer, frames):
+    """frames(), then a log line of the segments the tracer's compiled
+    frame captured during it (0 in steady state; none on the CPU)."""
+    before = tracer.graphs.totals["captures"]
+    out = frames()
+    log(f"{name}: {tracer.graphs.totals['captures'] - before} segments "
+        f"captured during the timed frames")
+    return out
+
+
 def median_ms(name, ms, prevs):
     """The median of a section's frame readings, after its gates: every
     reading > 0 and every frame's mean colour finite."""
@@ -343,7 +357,8 @@ def bench_frame(device, scene, reps=REPS):
     def frame():
         r = tracer.trace(arrays, o + prevs[-1] * 1e-4, d)
         prevs.append(r.color[:, :3].mean(0))
-    dt = median_ms("headline", time_frames(frame, device, reps), prevs)
+    dt = median_ms("headline", timed_captures(
+        "headline", tracer, lambda: time_frames(frame, device, reps)), prevs)
     mrays = o.shape[0] / dt / 1e3
     log(f"{dt:.3f} ms/frame, {o.shape[0]} primary rays")
     return {"metric": METRIC, "value": mrays, "unit": "Mrays/s",
@@ -396,7 +411,9 @@ def bench_mesh(device, cast_shadows=False, tag="", n_tris=100_000,
     def frame():
         r = tracer.trace(arrays, o + prevs[-1] * 1e-4, d)
         prevs.append(r.color[:, :3].mean(0))
-    dt = median_ms(f"mesh{tag}", time_frames(frame, device, reps), prevs)
+    dt = median_ms(f"mesh{tag}", timed_captures(
+        f"mesh{tag}", tracer, lambda: time_frames(frame, device, reps)),
+        prevs)
     a, b = mesh_keys(tag)
     return {a: dt, b: o.shape[0] / dt / 1e3}
 
@@ -409,13 +426,19 @@ def bench_aa(device, scene, reps=REPS):
     t0 = time.perf_counter()
     aa = T.AARenderer(scene.tracer, scene.cam, cfg)
     pos = arrays["lights"]["pos"]
+    # the frames read the light positions from one tensor, jittered in
+    # place: the compiled frame's graphs read it where it lies (a new
+    # tensor every frame would be a new scene, captured anew; this one
+    # is new once, and the tracer drops the headline's graphs for it,
+    # with the cache's warning)
+    lpos = pos.clone()
+    jarrays = {**arrays, "lights": {**arrays["lights"], "pos": lpos}}
 
     def jittered(prev):
-        # every trace reads the light positions from the dict it is given
-        return {**arrays, "lights": {**arrays["lights"],
-                                     "pos": pos + prev * 1e-6}}
+        lpos.copy_(pos + prev * 1e-6)
+        return jarrays
     before = snapshot()
-    rgb, _depth = aa.render(arrays)
+    rgb, _depth = aa.render(jarrays)
     sync(device)
     aa_compile_s = time.perf_counter() - t0
     cache = cache_state()
@@ -445,7 +468,9 @@ def bench_aa(device, scene, reps=REPS):
     def frame():
         out, _ = aa.render(jittered(prevs[-1]))
         prevs.append(out.mean((0, 1)))
-    dt = median_ms("aa", time_frames(frame, device, reps), prevs)
+    dt = median_ms("aa", timed_captures(
+        "aa", scene.tracer, lambda: time_frames(frame, device, reps)), prevs)
+    log(f"aa ray counts of the last frame {dict(aa.last_ray_counts)}")
     return {"aa_720x480_ms_per_frame": dt, "aa_rays_per_px": rays_px,
             "aa_720x480_Mrays_per_s": n_rays / dt / 1e3,
             "aa_compile_s": aa_compile_s, "aa_compile_cache": cache}

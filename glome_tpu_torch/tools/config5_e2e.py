@@ -52,14 +52,17 @@ CKPT_EVERY = 8
 def setup(xres, yres, device, select=None):
     """(compiled, cfg, cam, tracer, true arrays on `device`) of the
     TestScene at xres x yres (RenderConfig.tuned) on the megakernel
-    route; `select` as WavefrontTracer's (default: the kernels)."""
+    route; `select` as WavefrontTracer's (default: the kernels).  The
+    tracer runs the eager frame: the step's loss needs its gradient."""
     import glome_tpu_torch as T
     from glome_tpu_torch import megakernel as MK
+    from glome_tpu_torch.graphs import EAGER
     from glome_tpu_torch.scenes import test_scene
     solid, lights, cam = test_scene()
     compiled = T.compile_scene(solid, lights)
     cfg = T.RenderConfig.tuned(xres=xres, yres=yres)
-    tracer = T.WavefrontTracer(compiled, cfg, select=select or MK.KERNELS)
+    tracer = T.WavefrontTracer(compiled, cfg, select=select or MK.KERNELS,
+                               frame=EAGER)
     return compiled, cfg, cam, tracer, T.to_torch(compiled.arrays(), device)
 
 

@@ -15,7 +15,20 @@ waited for at a synchronising call (exact compaction's torch.nonzero,
 .item(), .cpu()); the level of a row is the index of the enclosing
 WavefrontTracer._down_level (or _up_level) call, or the depth of
 Tracer._trace, and the group is "scene.g<group>" (or "scene.csg<id>")
-on the pass-per-group route.
+on the pass-per-group route.  Every workload runs the wavefront
+tracer's eager frame (graphs.EAGER): its stages are Python functions,
+which a replay of the compiled frame never calls.
+
+--frame compiled reports the compiled frame instead (graphs.COMPILED,
+the default of Renderer and AARenderer on the card), which has no
+stages to split, on the frame's trace of rays built once (as
+tools/bench.py's frames) or the AA frame: its capture frame's seconds,
+the replay frame's ms
+unprofiled, one profiled replay frame's host wall, device busy time and
+share, each kernel's device ms, K1-K5 launches and plain calls per
+frame, captures, replays and host reads per frame, and the graph
+pools' bytes; each compiled frame must equal the eager frame of the
+same tracer, and a replay frame must capture nothing.
 
 The stages are wrapped from outside, where their callers look them up,
 for one profiled run (staged()), and the original objects are put back
@@ -41,8 +54,10 @@ Usage:
         --shadows --route groups
     python -m glome_tpu_torch.tools.profile_frame --scene test --aa
     python -m glome_tpu_torch.tools.profile_frame --scene test --config5
+    python -m glome_tpu_torch.tools.profile_frame --scene mesh100k \\
+        --shadows --frame compiled
         [--tracer wavefront|recursive] [--depths] [--trace DIR]
-        [--xres X --yres Y] [--device cuda|cpu]
+        [--xres X --yres Y] [--device cuda|cpu] [--frame eager|compiled]
 
 Full widths by default: TestScene 720x480 depth 3 (RenderConfig.tuned),
 the meshes at 1920x1080 depth 1, the AA frame at 720x480, one config 5
@@ -69,6 +84,9 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from .. import graphs as G
+from ..graphs import COMPILED, EAGER
 
 OUTSIDE = "(outside any stage)"
 NOT_MEASURED = "not measured"
@@ -199,18 +217,8 @@ STAGES = (
 def _counters():
     """(name, function, attribute) of the kernel wrappers' own counters:
     K1-K5 launches on the card, and their plain versions' calls."""
-    from glome_tpu_torch import block_kernel as BK
-    from glome_tpu_torch import group_kernels as GK
-    from glome_tpu_torch import megakernel as MK
-    from glome_tpu_torch import mesh_kernel as MSH
-    fns = (MK.mega_select, BK.block_select, MSH.mesh_block_select,
-           GK.dense_select, GK.bvh_select)
-    plain = (MK.mega_select_plain, BK.block_select_plain,
-             MSH.mesh_block_select_plain, GK.dense_select_plain,
-             GK.bvh_select_plain)
-    return tuple((f"K{i + 1}", fn, "launches") for i, fn in enumerate(fns)) \
-        + tuple((f"K{i + 1} plain", fn, "calls")
-                for i, fn in enumerate(plain))
+    return tuple((f"K{i % 5 + 1}{' plain' if a == 'calls' else ''}", f, a)
+                 for i, (f, a) in enumerate(G.counters()))
 
 
 @dataclasses.dataclass
@@ -796,8 +804,8 @@ def frame_workload(name, compiled, arrays, cam, cfg, route, recursive=False):
     """A Renderer.render frame through the wavefront tracer (or the
     recursive Tracer) on `route`."""
     import glome_tpu_torch as T
-    tracer = (T.Tracer if recursive else T.WavefrontTracer)(
-        compiled, cfg, route=route)
+    tracer = (T.Tracer(compiled, cfg, route=route) if recursive else
+              T.WavefrontTracer(compiled, cfg, route=route, frame=EAGER))
     renderer = T.Renderer(tracer, cam, cfg)
     return Workload(name, lambda: renderer.render(arrays),
                     FRAME + path_stages(compiled, route, recursive,
@@ -808,7 +816,7 @@ def frame_workload(name, compiled, arrays, cam, cfg, route, recursive=False):
 def aa_workload(name, compiled, arrays, cam, cfg, route):
     """An AARenderer.render frame over the wavefront tracer."""
     import glome_tpu_torch as T
-    tracer = T.WavefrontTracer(compiled, cfg, route=route)
+    tracer = T.WavefrontTracer(compiled, cfg, route=route, frame=EAGER)
     aa = T.AARenderer(tracer, cam, cfg)
     return Workload(name, lambda: aa.render(arrays),
                     AA + path_stages(compiled, route), _same_frames, tracer)
@@ -827,7 +835,7 @@ def config5_workload(compiled, arrays, cam, xres, yres):
     # the package exports the function optimize, which hides the module
     OPT = importlib.import_module("glome_tpu_torch.optimize")
     cfg = T.RenderConfig.tuned(xres=xres, yres=yres)
-    tracer = T.WavefrontTracer(compiled, cfg)
+    tracer = T.WavefrontTracer(compiled, cfg, frame=EAGER)
     target, _aa = C5.aa_target(tracer, cam, cfg, arrays)
     o, d = C5.pixel_rays(tracer, cam, cfg, arrays["lights"]["pos"].device)
     pert = C5.perturb(arrays)
@@ -857,6 +865,94 @@ def config5_workload(compiled, arrays, cam, xres, yres):
     stages = (CONFIG5 + (("SoftTracer._csg_margin",) if soft.has_csg else ())
               + path_stages(compiled, MEGA))
     return Workload(f"config 5 step {xres}x{yres}", run, stages, same, tracer)
+
+
+@dataclasses.dataclass
+class CompiledReport:
+    """The compiled frame of one renderer: capture frame s, replay ms
+    (unprofiled), one profiled replay frame's host wall and device busy
+    ms (None: not measured) and each kernel's device ms, the launches
+    and plain calls of one replay frame, its captures, replays and host
+    reads, the graph pools' bytes, and whether every compiled frame
+    equalled the eager frame."""
+    name: str
+    capture_s: float
+    replay_ms: float
+    wall_ms: float
+    busy_ms: Optional[float]
+    kernel_ms: Optional[Dict[str, float]]
+    counts: Dict[str, int]
+    per_frame: Dict[str, int]
+    pool_bytes: int
+    same: bool
+
+
+def compiled_workload(name, compiled, arrays, cam, cfg, aa=False):
+    """(name, compiled-frame run, eager run, tracer) over one
+    megakernel-route wavefront tracer and its eager twin: the frame's
+    trace on rays built once, every pixel in tile order (tools/bench.py's
+    frame, so the reading holds no per-frame numpy ray set-up of
+    Renderer.render), or with `aa` an AARenderer.render frame."""
+    import glome_tpu_torch as T
+    from . import bench
+    tracer = T.WavefrontTracer(compiled, cfg, frame=COMPILED)
+    eager = T.WavefrontTracer(compiled, cfg, frame=EAGER)
+    if aa:
+        r, e = T.AARenderer(tracer, cam, cfg), T.AARenderer(eager, cam, cfg)
+        return (name, lambda: r.render(arrays), lambda: e.render(arrays),
+                tracer)
+    o, d, _perm = bench.frame_rays(T.Renderer(tracer, cam, cfg),
+                                   arrays["lights"]["pos"].device)
+    return (name, lambda: tuple(tracer.trace(arrays, o, d)),
+            lambda: tuple(eager.trace(arrays, o, d)), tracer)
+
+
+def profile_compiled(name, run, eager_run, tracer, device, smi=None):
+    """Time and profile the compiled frame run() (see CompiledReport):
+    the capture frame, then the eager frame, then the replays (3 timed
+    after a warm-up, one profiled); prints it all."""
+    cuda = torch.device(device).type == "cuda"
+    tag = f"[{smi}] " if smi else "[cpu] "
+    totals = tracer.graphs.totals
+    _sync(device)
+    t0 = time.perf_counter()
+    first = run()
+    _sync(device)
+    capture_s = time.perf_counter() - t0
+    ref = eager_run()
+    same = _same_frames(first, ref)[0]
+    _res, ms = timed(run, device)
+    before = dict(totals)
+    c0 = {k: getattr(f, a) for k, f, a in _counters()}
+    last = []
+
+    def replay():
+        last.append(run())
+    if cuda:
+        wall, busy, per = profile_kernels(replay, tuple(KERNEL_NAMES),
+                                          top=TOP)
+    else:
+        t0 = time.perf_counter()
+        replay()
+        wall, busy, per = (time.perf_counter() - t0) * 1e3, None, None
+    counts = {k: getattr(f, a) - c0[k] for k, f, a in _counters()}
+    per_frame = {k: totals[k] - before[k] for k in totals}
+    same = same and _same_frames(last[0], ref)[0]
+    pool = tracer.graphs.pool_bytes() if cuda else 0
+    how = "CUDA events" if cuda else "host clock"
+    print(f"{tag}{name}, compiled frame: replay {ms:.3f} ms ({how}, mean "
+          f"of 3 after a warm-up); capture frame {capture_s:.3f} s; one "
+          f"profiled replay frame: host wall {wall:.3f} ms, device busy "
+          + (f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the wall)"
+             if busy is not None else NOT_MEASURED))
+    if per is not None:
+        print("  kernels' device ms in that frame: " + ", ".join(
+            f"{KERNEL_NAMES[k]} {v:.3f}" for k, v in per.items() if v))
+    print(f"  launches and plain calls {counts}; per frame {per_frame}; "
+          f"graph pools {pool} bytes; every compiled frame equal to the "
+          f"eager frame: {same}")
+    return CompiledReport(name, capture_s, ms, wall, busy, per, counts,
+                          per_frame, pool, same)
 
 
 def build(args, device, maxdepth=None):
@@ -894,6 +990,12 @@ def build(args, device, maxdepth=None):
     what = (f"{args.scene}{' self-shadowing' if args.shadows else ''} "
             f"{cfg.xres}x{cfg.yres} depth {cfg.maxdepth}, {args.route} "
             f"route")
+    if args.frame == COMPILED:
+        if route != MEGA or args.tracer != "wavefront" or args.depths:
+            raise SystemExit("--frame compiled is the wavefront tracer's "
+                             "frame on the megakernel route, one depth")
+        return compiled_workload(f"{'AA ' if args.aa else ''}{what}",
+                                 compiled, arrays, cam, cfg, args.aa)
     if args.aa:
         return aa_workload(f"AA {what}", compiled, arrays, cam, cfg, route)
     return frame_workload(f"{what}, {args.tracer} tracer", compiled, arrays,
@@ -979,6 +1081,9 @@ def main(argv=None):
     ap.add_argument("--xres", type=int, default=None)
     ap.add_argument("--yres", type=int, default=None)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--frame", default=EAGER, choices=(EAGER, COMPILED),
+                    help="the eager frame split by stage (default), or "
+                    "the compiled frame's replay")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("profile_frame: no CUDA device (--device cpu runs the plain "
@@ -990,6 +1095,9 @@ def main(argv=None):
     smi = nvidia_smi() if device.type == "cuda" else None
     if smi:
         print(smi)
+    if args.frame == COMPILED:
+        rep = profile_compiled(*build(args, device), device, smi)
+        return 0 if rep.same and not rep.per_frame["captures"] else 1
     rep = profile(build(args, device), device, smi, args.trace)
     ok = rep.same and not rep.missing
     if args.depths and not (args.aa or args.config5):

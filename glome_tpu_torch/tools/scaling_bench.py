@@ -52,11 +52,11 @@ payload:
 - each rank's gathered (rgb, t) of the warm-up and the last timed frame
   equals the one-rank frame on every ray (max |diff| 0);
 - every rank selected K1 exactly K1_PER_FRAME times a frame and
-  nothing else: on the card 2 kernel launches (the first level's
-  intersect and shadow batches; the deeper levels are empty) and no
-  plain call, on the CPU 2 * maxdepth plain calls (one per batch, empty
-  or not) and no launch (tools/bench.py's launch counters), so every
-  rank selected the same number;
+  nothing else: 2 * maxdepth, an intersect and a shadow batch per
+  level, empty or not (the tracer's compiled frame runs every level, an
+  empty one as a batch of dead lanes): on the card kernel launches and
+  no plain call, on the CPU plain calls and no launch (tools/bench.py's
+  launch counters), so every rank selected the same number;
 - zero overflow;
 - no rank imported jax, glome_tpu or the root tools/.
 
@@ -101,11 +101,11 @@ MAXDEPTH = 3
 SHIFT = 1e-5            # frame r's origins move by SHIFT * (r + 1)
 MODE = "shared-card-gloo-fixed-global-batch-1core"
 SERIES = ("1core", "core_per_rank")
-# K1 selections a frame: an intersect and a shadow batch per level, but
+# K1 selections a frame: an intersect and a shadow batch per level.
 # simple_scene reflects and refracts nothing, so levels 1 and 2 hold no
-# ray; on the card the wrapper launches nothing for an empty batch, on
-# the CPU the plain version is called for every batch
-K1_PER_FRAME = {"cuda": 2, "cpu": 2 * MAXDEPTH}
+# ray; the compiled frame still runs them, as batches of dead lanes, and
+# on the CPU the plain version is called for every batch
+K1_PER_FRAME = {"cuda": 2 * MAXDEPTH, "cpu": 2 * MAXDEPTH}
 RANK_MODULE = "glome_tpu_torch.tools.scaling_bench"
 # the repository's SCALING.json keys, then the port's own
 SCALING_KEYS = ("mode", "n_rays", "reps", "devices", "ms", "ms_spread",

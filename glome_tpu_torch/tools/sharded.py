@@ -92,10 +92,11 @@ def frame_rays(tracer, cam, cfg, device):
 def full_batch_step(tracer, arrays, o, d, target_rgb, lr):
     """The single-process reference of sharded_train_step_fn: the same
     loss over every ray and the same SGD step, no collective."""
+    from glome_tpu_torch.graphs import EAGER
     from glome_tpu_torch.optimize import tree_map
     params = tree_map(lambda p: p.detach().clone().requires_grad_(True),
                       arrays)
-    res = tracer.trace(params, o, d)
+    res = tracer.trace(params, o, d, frame=EAGER)  # the gradient's frame
     rgb = res.color[..., :3] * res.color[..., 3:4]
     loss = torch.sum((rgb - target_rgb) ** 2) / o.shape[0]
     loss.backward()

@@ -33,12 +33,14 @@ from . import color as C
 from . import megakernel as MK
 from .compile import CompiledScene, TAG_DEPTH, TEX_DEPTH
 from .config import DELTA, INFINITY, RenderConfig
+from .graphs import COMPILED, EAGER, check_frame
 from .intersect import (MEGA, Hit, check_route, intersect,
                         intersect_multi_table, shadow_query,
                         shadow_query_table)
 from .materials import (AdditiveLayers, Blend, BlendFn, Light, Material,
                         Reflect, Refract, Surface, Uniform, Warp)
-from .vec import bisect, reflect as vreflect, vdot, vnorm, vscaleadd
+from .vec import (bisect, const, reflect as vreflect, vdot, vnorm,
+                  vscaleadd)
 
 
 class TraceResult(NamedTuple):
@@ -104,6 +106,18 @@ def _light_arrays(compiled: CompiledScene, arrays,
 
 # --- the tracer -----------------------------------------------------------
 
+def _spawns_child(m: Material) -> bool:
+    """Whether material m reaches a Reflect or Refract (a reflected or
+    refracted child ray)."""
+    if isinstance(m, (Reflect, Refract)):
+        return True
+    if isinstance(m, AdditiveLayers):
+        return any(_spawns_child(s) for s in m.layers)
+    if isinstance(m, Blend):
+        return _spawns_child(m.m1) or _spawns_child(m.m2)
+    return False
+
+
 class Tracer:
     """The recursive trace program of one compiled scene.
 
@@ -132,18 +146,7 @@ class Tracer:
         self.tex_needs_reflect = np.zeros(ntex, dtype=bool)
         for tid, t in enumerate(compiled.textures):
             mats = ([t.material] if isinstance(t, Uniform) else [t.m1, t.m2])
-
-            def visit(m):
-                if isinstance(m, (Reflect, Refract)):
-                    self.tex_needs_reflect[tid] = True
-                elif isinstance(m, AdditiveLayers):
-                    for s in m.layers:
-                        visit(s)
-                elif isinstance(m, Blend):
-                    visit(m.m1)
-                    visit(m.m2)
-            for m in mats:
-                visit(m)
+            self.tex_needs_reflect[tid] = any(_spawns_child(m) for m in mats)
         # texture ids that reference each refract/warp material
         self.refract_texids = [
             np.array([tid for tid in range(ntex)
@@ -175,8 +178,7 @@ class Tracer:
         if len(texids) == 0:
             return torch.zeros(tex_stack.shape[0], dtype=torch.bool,
                                device=tex_stack.device)
-        ids = torch.as_tensor(texids, dtype=tex_stack.dtype,
-                              device=tex_stack.device)
+        ids = const(texids, tex_stack.dtype, tex_stack.device)
         return torch.any(tex_stack[..., None] == ids, dim=2).any(dim=1)
 
     # -- one batch through the route ----------------------------------------
@@ -209,11 +211,18 @@ class Tracer:
     # -- main entry --------------------------------------------------------
 
     def trace(self, arrays, o, d, tmax=None, recurs: Optional[int] = None,
-              scene_id: int = 0, lights: Optional[Tuple[Light, ...]] = None
-              ) -> TraceResult:
+              scene_id: int = 0, lights: Optional[Tuple[Light, ...]] = None,
+              frame: Optional[str] = None) -> TraceResult:
         """Trace N rays (o, d: (N, 3); tmax (N,) or None) in `scene_id`
         under `lights` (default: the root light set) with `recurs`
-        levels (default config.maxdepth)."""
+        levels (default config.maxdepth).  This tracer runs the eager
+        frame only (`frame` None or graphs.EAGER); the compiled frame is
+        WavefrontTracer's."""
+        check_frame(frame or EAGER)
+        if frame == COMPILED:
+            raise NotImplementedError(
+                "the recursive Tracer has no compiled frame "
+                "(WavefrontTracer(frame=COMPILED) has)")
         if recurs is None:
             recurs = self.config.maxdepth
         if lights is None:
@@ -362,8 +371,7 @@ class Tracer:
 
         for wi, w in enumerate(cc.warp_mats):
             active, fcolor, ft = frame_results[wi]
-            fwd = torch.as_tensor(np.asarray(w.xfm.fwd), dtype=dt,
-                                  device=dev)
+            fwd = const(w.xfm.fwd, dt, dev)
             wo = torch.einsum('ij,nj->ni', fwd[:, :3], hit.pos) + fwd[:, 3]
             wd = vnorm(torch.einsum('ij,nj->ni', fwd[:, :3], vnorm(d)))
             specs.append((("warp_target", wi), active, wo, wd, ft,
@@ -437,8 +445,7 @@ class Tracer:
             # missshade (Trace.hs:44): rays that hit nothing take the
             # shader's miss color; applies at every bounce level (but
             # NOT at the recursion floor, which is traceMiss)
-            bg = torch.tensor(tuple(self.config.background) + (1.0,),
-                              dtype=dtype, device=dev)
+            bg = const(tuple(self.config.background) + (1.0,), dtype, dev)
             acc = torch.where(hit.hit[:, None], acc, bg)
         return acc
 
@@ -459,7 +466,7 @@ class Tracer:
         dt = hit.pos.dtype
         dev = hit.pos.device
         if isinstance(m, Surface):
-            col = torch.tensor(m.color, dtype=dt, device=dev)
+            col = const(m.color, dt, dev)
             ambient = col * m.ambient
             direct = torch.zeros((N, 3), dtype=dt, device=dev)
             for contrib, ldir, active in ctx["lights"]:

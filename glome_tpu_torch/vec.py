@@ -8,9 +8,29 @@ rays/points are leading axes.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .config import INFINITY
+
+# device copies of host constants, by (bytes, shape, numpy dtype, torch
+# dtype, device)
+_CONSTS = {}
+
+
+def const(value, dtype, device):
+    """torch.as_tensor(value, dtype, device) of a host constant (a
+    number, a tuple or a small numpy array), made once per value, dtype
+    and device and cached: a frame captured as a CUDA graph must not
+    copy from the host, so every constant it reads already lies on the
+    device (graphs.py warms each segment up eagerly before capturing
+    it).  The cached tensor is shared: never write to it."""
+    arr = np.asarray(value)
+    key = (arr.tobytes(), arr.shape, arr.dtype.str, dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return t
 
 
 def vec(x, y, z):

@@ -1,7 +1,9 @@
 """K1-K5, M1 and M2 on the card: each CUDA kernel against its plain
 version, the wrappers' contracts, and K1's and K4's work tallies; the
 recursive Tracer, adaptive AA and a soft gradient step through the
-kernels against the plain set.  Every
+kernels against the plain set; the compiled frame (graphs.py) against
+the eager frame, an in-place edit read by a replay and a replaced
+tensor captured anew.  Every
 test needs a CUDA device and skips without one.  The card's machine has
 no JAX, so run these without the suite's conftest (which configures
 JAX):
@@ -769,9 +771,10 @@ def test_app_frame_and_work_maps_on_card(dev, tmp_path):
     argv = ["--scene", "simple", "--xres", "48", "--yres", "32"]
     n0, p0 = MK.mega_select.launches, MK.mega_select_plain.calls
     res = app.main(argv + ["--out", str(tmp_path / "gpu.png")])
-    # one intersect and one shadow batch: nothing in the scene reflects,
-    # so the deeper levels' queues are empty and launch nothing
-    assert MK.mega_select.launches - n0 == 2
+    # an intersect and a shadow batch per level: nothing in the scene
+    # reflects, so the deeper levels' queues are empty, and the compiled
+    # frame runs them as batches of dead lanes
+    assert MK.mega_select.launches - n0 == 6
     assert MK.mega_select_plain.calls == p0
     app.main(argv + ["--device", "cpu", "--out", str(tmp_path / "cpu.png")])
     np.testing.assert_array_equal(read_png(str(tmp_path / "gpu.png")),
@@ -882,3 +885,92 @@ def test_profile_frame_k1_launches_by_stage(dev):
     assert sum(r.device_ms for r in sp.rows) == pytest.approx(
         sp.device_ms, rel=1e-6)
     assert sp.busy_ms > 0 and not [s for s in w.stages if s not in sp.fired]
+
+
+# --- the compiled frame (graphs.py) ------------------------------------------
+
+def _compiled_case(dev, xres=180, yres=120):
+    from glome_tpu_torch.scenes import test_scene
+    solid, lights, cam = test_scene()
+    compiled = T.compile_scene(solid, lights)
+    cfg = T.RenderConfig.tuned(xres=xres, yres=yres)
+    tracer = T.WavefrontTracer(compiled, cfg)
+    ys, xs = np.mgrid[0:yres, 0:xres]
+    o, d = T.Renderer(tracer, cam, cfg).rays_for_pixels(
+        xs.reshape(-1).astype(np.float32), ys.reshape(-1).astype(np.float32),
+        dev)
+    return tracer, T.to_torch(compiled.arrays(), dev), o, d
+
+
+def _frames_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+
+
+def _sphere_centres(arrays):
+    return next(ga for ga in arrays["scenes"][0] if "center" in ga)
+
+
+def test_compiled_frame_equals_eager_frame(dev):
+    """The TestScene frame at 180x120 depth 3: the capture frame and the
+    replays equal the eager frame on every lane; a replay captures
+    nothing, reads the host once per level but the deepest, and counts
+    the K1 launches the eager frame makes."""
+    from glome_tpu_torch.graphs import COMPILED, EAGER
+    tracer, arrays, o, d = _compiled_case(dev)
+    n0, p0 = MK.mega_select.launches, MK.mega_select_plain.calls
+    first = tracer.trace(arrays, o, d, frame=COMPILED)
+    assert tracer.last_frame["captures"] == 2 * tracer.config.maxdepth
+    # the capture frame launches each kernel once (the warm-up), no plain
+    assert MK.mega_select.launches - n0 == 2 * tracer.config.maxdepth
+    assert MK.mega_select_plain.calls == p0
+    n0 = MK.mega_select.launches
+    replay = tracer.trace(arrays, o, d, frame=COMPILED)
+    k_replay = MK.mega_select.launches - n0
+    stats = dict(tracer.last_frame)
+    n0 = MK.mega_select.launches
+    eager = tracer.trace(arrays, o, d, frame=EAGER)
+    k_eager = MK.mega_select.launches - n0
+    torch.cuda.synchronize()
+    assert stats["captures"] == 0
+    assert stats["replays"] == 2 * tracer.config.maxdepth
+    assert stats["host_reads"] == tracer.config.maxdepth - 1
+    assert k_replay == k_eager == 2 * tracer.config.maxdepth
+    assert _frames_equal(first, eager) and _frames_equal(replay, eager)
+    assert tracer.graphs.pool_bytes() > 0
+
+
+def test_compiled_frame_reads_an_inplace_edit(dev):
+    """A sphere's centre moved in place (an optimizer step) shows in the
+    next replay exactly as in the eager frame, with nothing captured."""
+    from glome_tpu_torch.graphs import EAGER
+    tracer, arrays, o, d = _compiled_case(dev)
+    before = tracer.trace(arrays, o, d)
+    _sphere_centres(arrays)["center"].add_(
+        torch.tensor([0.3, 0.1, 0.0], device=dev))
+    got = tracer.trace(arrays, o, d)
+    assert tracer.last_frame["captures"] == 0
+    want = tracer.trace(arrays, o, d, frame=EAGER)
+    assert _frames_equal(got, want)
+    assert not torch.equal(got.color, before.color)
+
+
+def test_compiled_frame_captures_a_replaced_tensor(dev):
+    """A scene tensor replaced by a new one is a new scene: the next
+    frame drops the old scene's segments (with a warning), captures anew
+    and equals the eager frame of the new tensors."""
+    from glome_tpu_torch.graphs import EAGER
+    tracer, arrays, o, d = _compiled_case(dev)
+    tracer.trace(arrays, o, d)
+    ga = _sphere_centres(arrays)
+    ga["center"] = ga["center"] + torch.tensor([0.0, 0.2, 0.0], device=dev)
+    with pytest.warns(RuntimeWarning, match="segments dropped"):
+        got = tracer.trace(arrays, o, d)
+    assert tracer.graphs.scene_changes == 1
+    assert len(tracer.graphs) == 2 * tracer.config.maxdepth
+    assert tracer.last_frame["captures"] == 2 * tracer.config.maxdepth
+    assert tracer.last_frame["replays"] == 0
+    want = tracer.trace(arrays, o, d, frame=EAGER)
+    assert _frames_equal(got, want)
+    again = tracer.trace(arrays, o, d)
+    assert tracer.last_frame["captures"] == 0
+    assert _frames_equal(again, want)

@@ -230,6 +230,39 @@ def test_main_on_the_cpu(capsys):
     assert rows and all(PF.NOT_MEASURED in ln for ln in rows)
 
 
+@pytest.mark.parametrize("aa", [False, True])
+def test_compiled_frame_report(testscene, aa):
+    compiled, arrays, cam = testscene
+    cfg = T.RenderConfig.tuned(xres=48, yres=32)
+    name, run, eager, tracer = PF.compiled_workload(
+        "compiled", compiled, arrays, cam, cfg, aa)
+    rep = PF.profile_compiled(name, run, eager, tracer, "cpu")
+    # on the CPU the static-width levels run eagerly: nothing captured,
+    # the plain versions stand in, no device number
+    assert rep.same and rep.busy_ms is None and rep.kernel_ms is None
+    assert rep.per_frame == {"captures": 0, "replays": 0, "host_reads": 0}
+    assert all(rep.counts[k] == 0 for k in K)
+    # two K1 batches a level of every trace (the AA frame traces up to 5)
+    per_trace = 2 * cfg.maxdepth
+    n = rep.counts["K1 plain"]
+    assert n == per_trace if not aa else (n % per_trace == 0 and n > 0)
+    if not aa:
+        assert tracer.last_frame["widths"][0] == 48 * 32
+
+
+def test_main_compiled_frame_on_the_cpu(capsys):
+    rc = PF.main(["--scene", "test", "--xres", "32", "--yres", "24",
+                  "--device", "cpu", "--frame", "compiled"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "compiled frame: replay" in out and "device busy not measured" \
+        in out
+    assert "every compiled frame equal to the eager frame: True" in out
+    with pytest.raises(SystemExit, match="megakernel route"):
+        PF.main(["--scene", "test", "--route", "groups", "--device", "cpu",
+                 "--frame", "compiled"])
+
+
 def test_main_needs_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert PF.main(["--scene", "test"]) == 2
