@@ -38,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from . import telemetry
 from .config import INFINITY, RenderConfig
 from .render import Camera, pixel_coords, primary_rays
 from .trace import Tracer, compact_indices
@@ -87,26 +88,31 @@ class AARenderer:
         """Trace rays at global float pixel coords; (n, 5) TColors
         (r, g, b, a, depth)."""
         cfg = self.config
-        xc, yc = pixel_coords(cfg.xres, cfg.yres, xf + off, yf + off)
-        o, d = primary_rays(self.cam, xc, yc)
+        with telemetry.span("aa.pass_setup"):
+            xc, yc = pixel_coords(cfg.xres, cfg.yres, xf + off, yf + off)
+            o, d = primary_rays(self.cam, xc, yc)
         res = self.tracer.trace(arrays, o, d)
-        return torch.cat([res.color, res.t[:, None]], dim=-1)
+        with telemetry.span("aa.pass_setup"):
+            return torch.cat([res.color, res.t[:, None]], dim=-1)
 
     def _masked_trace(self, arrays, img, mask, off=0.0):
         """Trace the pixels where mask (Hp, Wp) is set and write the
         results into the (5, Hp, Wp) plane stack: (img', requested
-        rays)."""
+        rays).  The span aa.pass_setup covers all of it but the trace
+        call (compact_indices' torch.nonzero waits for the device)."""
         Hp, Wp = mask.shape
-        idx = compact_indices(mask.reshape(-1))
-        req = idx.numel()
-        if req == 0:
-            return img, 0
-        xf = (idx % Wp).to(img.dtype)
-        yf = (idx // Wp).to(img.dtype)
+        with telemetry.span("aa.pass_setup"):
+            idx = compact_indices(mask.reshape(-1))
+            req = idx.numel()
+            if req == 0:
+                return img, 0
+            xf = (idx % Wp).to(img.dtype)
+            yf = (idx // Wp).to(img.dtype)
         tc = self._trace_pixels(arrays, xf, yf, off=off)
-        flat = img.reshape(5, Hp * Wp).t()
-        out = flat.index_copy(0, idx, tc.to(img.dtype))
-        return out.t().reshape(5, Hp, Wp), req
+        with telemetry.span("aa.pass_setup"):
+            flat = img.reshape(5, Hp * Wp).t()
+            out = flat.index_copy(0, idx, tc.to(img.dtype))
+            return out.t().reshape(5, Hp, Wp), req
 
     @staticmethod
     def _shift(img, dx, dy, ok):
@@ -126,7 +132,15 @@ class AARenderer:
         """Full adaptive-AA frame: ((H, W, 3) rgb, (H, W) depth) on the
         arrays' device.  Per-pass requested-ray counts (the reference's
         1/8..2 rays/px cost model) land in self.last_ray_counts; the
-        queues are exact, so self.last_overflow is all zeros."""
+        queues are exact, so self.last_overflow is all zeros.  One call
+        is one telemetry frame: the spans aa.mask_planes (the static
+        masks, built and uploaded), aa.variance (the decisions and the
+        final combine; its mask planes are child spans) and
+        aa.pass_setup (each pass's work around its trace call)."""
+        with telemetry.frame("aa.frame"):
+            return self._render(arrays)
+
+    def _render(self, arrays):
         cfg = self.config
         dev = arrays["lights"]["pos"].device
         S = cfg.blocksize
@@ -134,20 +148,23 @@ class AARenderer:
         Wp = math.ceil(cfg.xres / S) * S
         th = (None,) + tuple(cfg.thresholds)
 
-        # static mask planes
-        y, x = np.mgrid[0:Hp, 0:Wp]
-        lx, ly = x % S, y % S
-
         def plane(m):
-            return torch.as_tensor(m, device=dev)
+            with telemetry.span("aa.mask_planes"):
+                return torch.as_tensor(m, device=dev)
 
         def okmask(dx, dy):
-            return plane((lx + dx >= 0) & (lx + dx < S)
-                         & (ly + dy >= 0) & (ly + dy < S))
+            with telemetry.span("aa.mask_planes"):
+                return torch.as_tensor((lx + dx >= 0) & (lx + dx < S)
+                                       & (ly + dy >= 0) & (ly + dy < S),
+                                       device=dev)
 
-        even = (x % 2 == 0) & (y % 2 == 0)
-        masks = [even & ((x + y) % 4 == 0), even & ((x + y) % 4 == 2),
-                 (x % 2 == 1) & (y % 2 == 1), (x + y) % 2 == 1]
+        # static mask planes
+        with telemetry.span("aa.mask_planes"):
+            y, x = np.mgrid[0:Hp, 0:Wp]
+            lx, ly = x % S, y % S
+            even = (x % 2 == 0) & (y % 2 == 0)
+            masks = [even & ((x + y) % 4 == 0), even & ((x + y) % 4 == 2),
+                     (x % 2 == 1) & (y % 2 == 1), (x + y) % 2 == 1]
 
         counts = {}
         img = torch.zeros((5, Hp, Wp), dtype=torch.float32, device=dev)
@@ -157,37 +174,42 @@ class AARenderer:
             if _PASS_OFFSETS[i] is None:
                 need = mask
             else:
-                a, b, c, d = [self._shift(img, dx, dy, okmask(dx, dy))
-                              for dx, dy in _PASS_OFFSETS[i]]
-                variance = torch.maximum(_ccmp(a, c), _ccmp(b, d))
-                need = mask & (variance > th[i])
-                interp = _cavg(a, b, c, d)
-                img = torch.where((mask & ~need)[None], interp, img)
+                with telemetry.span("aa.variance"):
+                    a, b, c, d = [self._shift(img, dx, dy, okmask(dx, dy))
+                                  for dx, dy in _PASS_OFFSETS[i]]
+                    variance = torch.maximum(_ccmp(a, c), _ccmp(b, d))
+                    need = mask & (variance > th[i])
+                    interp = _cavg(a, b, c, d)
+                    img = torch.where((mask & ~need)[None], interp, img)
             img, counts[f"pass{i + 1}"] = self._masked_trace(arrays, img,
                                                              need)
 
         # pass 5: supersample at pixel corners and average (Glome.hs:299-321)
-        a = img
-        b = self._shift(img, 0, 1, okmask(0, 1))
-        c = self._shift(img, 1, 1, okmask(1, 1))
-        d = self._shift(img, 1, 0, okmask(1, 0))
-        variance = torch.maximum(_ccmp(a, c), _ccmp(b, d))
-        need = variance > th[4]
-        corner = _cavg(a, b, c, d)
+        with telemetry.span("aa.variance"):
+            a = img
+            b = self._shift(img, 0, 1, okmask(0, 1))
+            c = self._shift(img, 1, 1, okmask(1, 1))
+            d = self._shift(img, 1, 0, okmask(1, 0))
+            variance = torch.maximum(_ccmp(a, c), _ccmp(b, d))
+            need = variance > th[4]
+            corner = _cavg(a, b, c, d)
         corner, counts["pass5"] = self._masked_trace(arrays, corner, need,
                                                      off=0.5)
-        last = S - 1
-        xe = plane(lx == last)[None]
-        ye = plane(ly == last)[None]
-        cell = torch.where(xe, torch.where(ye, corner, _cavg(a, b)),
-                           torch.where(ye, _cavg(a, d), _cavg(a, b, c, d)))
-        out = torch.where(xe & ye, corner, _cavg(corner, cell))
+        with telemetry.span("aa.variance"):
+            last = S - 1
+            xe = plane(lx == last)[None]
+            ye = plane(ly == last)[None]
+            cell = torch.where(xe, torch.where(ye, corner, _cavg(a, b)),
+                               torch.where(ye, _cavg(a, d),
+                                           _cavg(a, b, c, d)))
+            out = torch.where(xe & ye, corner, _cavg(corner, cell))
 
-        frame = out[:, :cfg.yres, :cfg.xres]
-        rgb = frame[:3].permute(1, 2, 0) * frame[3][..., None]
+            frame = out[:, :cfg.yres, :cfg.xres]
+            rgb = frame[:3].permute(1, 2, 0) * frame[3][..., None]
+            rgb = torch.clamp(rgb, 0.0, 1.0)
         self.last_ray_counts = counts
         self.last_overflow = {}
         for i in range(1, 6):
             self.last_overflow[f"pass{i}"] = 0
             self.last_overflow[f"pass{i}/wf"] = 0
-        return torch.clamp(rgb, 0.0, 1.0), frame[4]
+        return rgb, frame[4]

@@ -15,6 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import telemetry
 from .config import RenderConfig
 from .trace import Tracer
 
@@ -109,29 +110,34 @@ class Renderer:
         """Render a full frame at 1 ray/pixel; returns (H, W, 3) rgb in
         [0, 1] (premultiplied by alpha, like the reference blit,
         Glome.hs:353-358) and the (H, W) depth map.  Rays are traced in
-        32x32-tile order (see tile_order) and scattered back."""
-        cfg = self.config
-        device = arrays["lights"]["pos"].device
-        ys, xs = np.mgrid[0:cfg.yres, 0:cfg.xres]
-        perm = tile_order(cfg.xres, cfg.yres)
-        xf = xs.reshape(-1)[perm].astype(np.float32) + subpixel_offset
-        yf = ys.reshape(-1)[perm].astype(np.float32) + subpixel_offset
-        o, d = self.rays_for_pixels(xf, yf, device)
-        n = o.shape[0]
-        chunk = self.ray_chunk or n
-        rgbs, depths = [], []
-        self.last_overflow = None
-        for s in range(0, n, chunk):
-            rgb, t, ov = self._render_rays(arrays, o[s:s + chunk],
-                                           d[s:s + chunk])
-            rgbs.append(rgb)
-            depths.append(t)
-            if ov is not None:
-                self.last_overflow = (ov if self.last_overflow is None
-                                      else self.last_overflow + ov)
-        inv = np.empty_like(perm)
-        inv[perm] = np.arange(perm.shape[0])
-        inv_t = torch.as_tensor(inv, device=device)
-        rgb = torch.cat(rgbs)[inv_t].reshape(cfg.yres, cfg.xres, 3)
-        t = torch.cat(depths)[inv_t].reshape(cfg.yres, cfg.xres)
-        return torch.clamp(rgb, 0.0, 1.0), t
+        32x32-tile order (see tile_order) and scattered back.  One call
+        is one telemetry frame: the spans render.ray_setup (up to the
+        first trace call) and render.scatter (after the last)."""
+        with telemetry.frame("render.frame"):
+            cfg = self.config
+            with telemetry.span("render.ray_setup"):
+                device = arrays["lights"]["pos"].device
+                ys, xs = np.mgrid[0:cfg.yres, 0:cfg.xres]
+                perm = tile_order(cfg.xres, cfg.yres)
+                xf = xs.reshape(-1)[perm].astype(np.float32) + subpixel_offset
+                yf = ys.reshape(-1)[perm].astype(np.float32) + subpixel_offset
+                o, d = self.rays_for_pixels(xf, yf, device)
+            n = o.shape[0]
+            chunk = self.ray_chunk or n
+            rgbs, depths = [], []
+            self.last_overflow = None
+            for s in range(0, n, chunk):
+                rgb, t, ov = self._render_rays(arrays, o[s:s + chunk],
+                                               d[s:s + chunk])
+                rgbs.append(rgb)
+                depths.append(t)
+                if ov is not None:
+                    self.last_overflow = (ov if self.last_overflow is None
+                                          else self.last_overflow + ov)
+            with telemetry.span("render.scatter"):
+                inv = np.empty_like(perm)
+                inv[perm] = np.arange(perm.shape[0])
+                inv_t = torch.as_tensor(inv, device=device)
+                rgb = torch.cat(rgbs)[inv_t].reshape(cfg.yres, cfg.xres, 3)
+                t = torch.cat(depths)[inv_t].reshape(cfg.yres, cfg.xres)
+                return torch.clamp(rgb, 0.0, 1.0), t

@@ -28,7 +28,11 @@ unprofiled, one profiled replay frame's host wall, device busy time and
 share, each kernel's device ms, K1-K5 launches and plain calls per
 frame, captures, replays and host reads per frame, and the graph
 pools' bytes; each compiled frame must equal the eager frame of the
-same tracer, and a replay frame must capture nothing.
+same tracer, and a replay frame must capture nothing.  The profiled
+replay frame is also split by the program's own spans (telemetry.py):
+per span name its calls, host ms, self ms (less its child spans) and
+the device busy ms while it is open, and K1's live lanes over its
+launched lanes.
 
 The stages are wrapped from outside, where their callers look them up,
 for one profiled run (staged()), and the original objects are put back
@@ -86,6 +90,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from .. import graphs as G
+from .. import telemetry as TM
 from ..graphs import COMPILED, EAGER
 
 OUTSIDE = "(outside any stage)"
@@ -545,11 +550,12 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def profile_kernels(run, names=(), top=0):
+def profile_kernels(run, names=(), top=0, keep_ops=None):
     """(host wall ms, device busy ms, {kernel name: device ms}) of one
     call of run() under torch.profiler on the card, for the named
     kernels (busy and the dict None where it saw no device time); with
-    `top`, also prints the device ops that took the most time."""
+    `top`, also prints the device ops that took the most time; the
+    list `keep_ops`, where given, receives the DeviceOps."""
     from torch.profiler import profile
     torch.cuda.synchronize()
     with profile(activities=_activities("cuda")) as prof:
@@ -558,6 +564,8 @@ def profile_kernels(run, names=(), top=0):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     ops, _ranges = device_ops(prof)
+    if keep_ops is not None:
+        keep_ops.extend(ops)
     per, by_name = dict.fromkeys(names, 0.0), {}
     for o in ops:
         ms = (o.end - o.start) / 1e6
@@ -885,6 +893,29 @@ class CompiledReport:
     per_frame: Dict[str, int]
     pool_bytes: int
     same: bool
+    spans: List[Tuple[str, int, float, float, Optional[float]]]
+    lanes: Dict[str, int]
+
+
+def span_rows(rec, ops=None):
+    """A telemetry frame record's spans by name, in the order each name
+    first opens: (name, calls, host ms, self ms, device busy ms while a
+    span of that name is open, or None without `ops`, the profiler's
+    DeviceOps of the frame)."""
+    inside = {}
+    for name, a, b, _p in rec.intervals():
+        inside.setdefault(name, []).append((a, b))
+    rows = []
+    for name, spans in inside.items():
+        calls, total, own = rec.sums[name]
+        busy = None
+        if ops is not None:
+            busy = sum(busy_ms([DeviceOp(o.name, max(o.start, a),
+                                         min(o.end, b), None)
+                                for o in ops if o.end > a and o.start < b])
+                       for a, b in spans)
+        rows.append((name, calls, total / 1e6, own / 1e6, busy))
+    return rows
 
 
 def compiled_workload(name, compiled, arrays, cam, cfg, aa=False):
@@ -925,12 +956,13 @@ def profile_compiled(name, run, eager_run, tracer, device, smi=None):
     before = dict(totals)
     c0 = {k: getattr(f, a) for k, f, a in _counters()}
     last = []
+    ops = [] if cuda else None
 
     def replay():
         last.append(run())
     if cuda:
         wall, busy, per = profile_kernels(replay, tuple(KERNEL_NAMES),
-                                          top=TOP)
+                                          top=TOP, keep_ops=ops)
     else:
         t0 = time.perf_counter()
         replay()
@@ -951,8 +983,18 @@ def profile_compiled(name, run, eager_run, tracer, device, smi=None):
     print(f"  launches and plain calls {counts}; per frame {per_frame}; "
           f"graph pools {pool} bytes; every compiled frame equal to the "
           f"eager frame: {same}")
+    rec = TM.frames()[-1]
+    spans = span_rows(rec, ops)
+    print("  the program's spans in that frame (telemetry): calls, host "
+          "ms, self ms, device busy ms while open")
+    for nm, calls, host, own, dev in spans:
+        print(f"    {nm:24s} {calls:4d} {host:10.3f} {own:10.3f} "
+              + (f"{dev:10.3f}" if dev is not None else NOT_MEASURED))
+    lanes = {k: rec.counts.get(k, 0) for k in ("k1.lanes", "k1.live_lanes")}
+    print(f"  K1 lanes launched {lanes['k1.lanes']}, live "
+          f"{lanes['k1.live_lanes']} over {len(rec.launches)} launches")
     return CompiledReport(name, capture_s, ms, wall, busy, per, counts,
-                          per_frame, pool, same)
+                          per_frame, pool, same, spans, lanes)
 
 
 def build(args, device, maxdepth=None):

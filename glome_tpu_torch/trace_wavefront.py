@@ -53,6 +53,7 @@ import torch
 from . import color as C
 from . import graphs as G
 from . import megakernel as MK
+from . import telemetry
 from .compile import CompiledScene
 from .config import DELTA, INFINITY, RenderConfig
 from .graphs import COMPILED, EAGER
@@ -247,6 +248,12 @@ class WavefrontTracer(Tracer):
         light_pre, sh_segments, table = (shadow_rays_static if static else
                                          shadow_rays)(hit, sidf, lights,
                                                       lpos, lrad)
+        if static:
+            # the shadow batch's live lanes, read with the child counts
+            sh_live = (torch.stack([light_pre[li][2]
+                                    for li, _s in sh_segments]).sum()
+                       if sh_segments else
+                       torch.zeros((), dtype=torch.int64, device=dev))
         if sh_segments:
             blocked = shadow_query_table(cc, arrays, table,
                                          select=self.select,
@@ -376,7 +383,8 @@ class WavefrontTracer(Tracer):
             mask=stored_mask, extra=stored_extra,
         )
         if static:
-            return self._spawn_static(spawned, Qc, dt, dev, stored)
+            return self._spawn_static(spawned, Qc, dt, dev, stored, sh_live)
+        stored["shadow_lanes"] = table.shape[1] if sh_segments else None
         if last or not child:
             Qnext = torch.zeros((8, 0), dtype=dt, device=dev)
         else:
@@ -385,18 +393,22 @@ class WavefrontTracer(Tracer):
         return Qnext, stored
 
     @staticmethod
-    def _spawn_static(spawned, B, dt, dev, stored):
+    def _spawn_static(spawned, B, dt, dev, stored, sh_live):
         """The static level's child queue: every segment's rays scattered
         to (segment offset + rank) in a queue of bucket(n_seg * B) lanes,
         in the eager frame's order, dead lanes after.  stored gets the
-        (n_seg,) counts and the (n_seg, B) source slot of each lane's
-        child (valid where its mask is set)."""
+        (n_seg,) counts, the (n_seg, B) source slot of each lane's child
+        (valid where its mask is set), and "read": the counts then
+        sh_live, the shadow batch's live lanes (the level's one host
+        read)."""
         cap = bucket(len(spawned) * B)
         if not spawned:
             stored["counts"] = torch.zeros(0, dtype=torch.int64, device=dev)
+            stored["read"] = sh_live.reshape(1)
             return dead_table(cap, dt, dev), stored
         masks = torch.stack([m for m, _r in spawned])
         counts = masks.sum(dim=1)
+        stored["read"] = torch.cat([counts, sh_live.reshape(1)])
         offs = torch.cumsum(counts, 0) - counts
         slots = torch.stack([pack_static(offs[k], masks[k], cap)
                              for k in range(len(spawned))])
@@ -508,45 +520,55 @@ class WavefrontTracer(Tracer):
         raises when a gradient is asked of it (grad mode on and a scene
         tensor or ray that requires grad), on route=GROUPS, and when a
         capture or replay fails; it never carries on eagerly.  On CPU
-        tensors it runs its static-width levels eagerly."""
-        if recurs is None:
-            recurs = self.config.maxdepth
-        if lights is None:
-            lights = self.compiled.lights
-        if lights != self.compiled.lights:
-            raise NotImplementedError(
-                "the wavefront tracer traces the root light set only; "
-                "trace.Tracer traces any light set")
-        frame = self.frame if frame is None else frame
-        G.check_frame(frame)
-        N = o.shape[0]
-        dt = o.dtype
-        R = max(recurs, 1)
-        if tmax is None:
-            tmax = torch.full((N,), INFINITY, dtype=dt, device=o.device)
-        self.last_batches = 0
-        if frame == COMPILED:
-            return self._trace_compiled(arrays, o, d, tmax, R, scene_id,
-                                        lights)
-        lpos, lcol, lrad = _light_arrays(self.compiled, arrays, lights)
-        Q = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                         d[:, 2], tmax,
-                         torch.full((N,), float(scene_id), dtype=dt,
-                                    device=o.device)])
-        stored_levels = []
-        for level in range(R):
-            Q, stored = self._down_level(arrays, Q, lights, lpos, lcol,
-                                         lrad, last=(level == R - 1))
-            stored_levels.append(stored)
+        tensors it runs its static-width levels eagerly.  A call is the
+        telemetry span wavefront.trace; each K1 batch is a
+        telemetry.launch of "k1" (lanes launched, lanes live)."""
+        with telemetry.span("wavefront.trace"):
+            if recurs is None:
+                recurs = self.config.maxdepth
+            if lights is None:
+                lights = self.compiled.lights
+            if lights != self.compiled.lights:
+                raise NotImplementedError(
+                    "the wavefront tracer traces the root light set only; "
+                    "trace.Tracer traces any light set")
+            frame = self.frame if frame is None else frame
+            G.check_frame(frame)
+            N = o.shape[0]
+            dt = o.dtype
+            R = max(recurs, 1)
+            if tmax is None:
+                tmax = torch.full((N,), INFINITY, dtype=dt, device=o.device)
+            self.last_batches = 0
+            if frame == COMPILED:
+                return self._trace_compiled(arrays, o, d, tmax, R, scene_id,
+                                            lights)
+            lpos, lcol, lrad = _light_arrays(self.compiled, arrays, lights)
+            Q = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                             d[:, 2], tmax,
+                             torch.full((N,), float(scene_id), dtype=dt,
+                                        device=o.device)])
+            stored_levels = []
+            for level in range(R):
+                lanes = Q.shape[1]
+                Q, stored = self._down_level(arrays, Q, lights, lpos, lcol,
+                                             lrad, last=(level == R - 1))
+                stored_levels.append(stored)
+                if self.route == MEGA:
+                    # exact queues: every lane launched holds a live ray
+                    telemetry.launch("k1", level, "intersect", lanes, lanes)
+                    sh = stored["shadow_lanes"]
+                    if sh is not None:
+                        telemetry.launch("k1", level, "shadow", sh, sh)
 
-        color = C.ca_transparent((0,), dt, o.device)
-        t = torch.zeros((0,), dtype=dt, device=o.device)
-        for level in reversed(range(R)):
-            color, t = self._up_level(stored_levels[level], color, t,
-                                      lights)
-        s0 = stored_levels[0]
-        return TraceResult(color, s0["t"], s0["tag"], s0["serial"],
-                           self._overflow(R, lights, o.device))
+            color = C.ca_transparent((0,), dt, o.device)
+            t = torch.zeros((0,), dtype=dt, device=o.device)
+            for level in reversed(range(R)):
+                color, t = self._up_level(stored_levels[level], color, t,
+                                          lights)
+            s0 = stored_levels[0]
+            return TraceResult(color, s0["t"], s0["tag"], s0["serial"],
+                               self._overflow(R, lights, o.device))
 
     def _overflow(self, R, lights, device):
         n_seg = len(self._segments())
@@ -575,6 +597,8 @@ class WavefrontTracer(Tracer):
             Q[6, :N] = tmax
             Q[7, :N] = float(scene_id)
             levels = []
+            live = N
+            n_shadow = sum(bool(l.shadow) for l in lights)
             for level in range(R):
                 last = level == R - 1
                 widths.append(B)
@@ -590,17 +614,29 @@ class WavefrontTracer(Tracer):
                                         *(((Q,), ()) if level == 0
                                           else ((), (Q,))))
                 levels.append(stored)
+                telemetry.launch("k1", level, "intersect", B, live)
+                read = None
+                if not last and stored["counts"].numel():
+                    # the level's one host read: its child counts and its
+                    # shadow batch's live lanes
+                    with telemetry.span("wavefront.count_read"):
+                        read = stored["read"].tolist()
+                    run.count("host_reads")
+                if n_shadow:
+                    # a level with no read: its shadow count is copied
+                    # without blocking and resolved when the record is read
+                    telemetry.launch(
+                        "k1", level, "shadow", n_shadow * B,
+                        read[-1] if read is not None else
+                        telemetry.pending(stored["read"][-1:]))
                 if last:
                     break
-                n = 0
-                if stored["counts"].numel():
-                    # the level's one host read: its child counts
-                    n = sum(stored["counts"].tolist())
-                    run.count("host_reads")
+                n = sum(read[:-1]) if read is not None else 0
                 # a level of no rays still runs, all dead lanes, as the
                 # eager frame runs its empty batches
                 B = bucket(n)
                 Q = Qnext[:, :B]
+                live = n
 
             color = t = None
             for level in reversed(range(len(levels))):
@@ -625,5 +661,7 @@ class WavefrontTracer(Tracer):
         self.last_batches = len(levels) * (
             1 + any(l.shadow for l in lights))
         self.last_frame = {**run.stats(), "widths": widths}
+        for k, v in run.stats().items():
+            telemetry.count("graphs." + k, v)
         return res
 

@@ -248,6 +248,12 @@ def test_compiled_frame_report(testscene, aa):
     assert n == per_trace if not aa else (n % per_trace == 0 and n > 0)
     if not aa:
         assert tracer.last_frame["widths"][0] == 48 * 32
+    # the replay frame split by the program's spans; no device number
+    names = [r[0] for r in rep.spans]
+    assert names[0] == ("aa.frame" if aa else "wavefront.trace")
+    assert "wavefront.count_read" in names
+    assert all(r[4] is None and r[2] >= r[3] >= 0 for r in rep.spans)
+    assert 0 < rep.lanes["k1.live_lanes"] < rep.lanes["k1.lanes"]
 
 
 def test_main_compiled_frame_on_the_cpu(capsys):
@@ -258,6 +264,7 @@ def test_main_compiled_frame_on_the_cpu(capsys):
     assert "compiled frame: replay" in out and "device busy not measured" \
         in out
     assert "every compiled frame equal to the eager frame: True" in out
+    assert "the program's spans in that frame" in out
     with pytest.raises(SystemExit, match="megakernel route"):
         PF.main(["--scene", "test", "--route", "groups", "--device", "cpu",
                  "--frame", "compiled"])
