@@ -17,7 +17,12 @@ Out-of-tile neighbor reads are transparent-infinite (Glome.hs:233-235),
 so tiles behave independently, as the reference's parMap over tiles.
 The working image is one channel-major (5, Hp, Wp) plane stack
 (r, g, b, a, depth) over the tile-padded frame; tile independence is
-enforced by static boundary masks.
+enforced by static boundary masks.  The stencil's static geometry (the
+pass masks, the tile-boundary and tile-edge masks) depends only on
+(Hp, Wp, S) and the device: each renderer builds it on the device for
+the first frame of a frame size and reuses it (glome_tpu builds the
+same planes as constants of its jitted frame).  It is kept in
+separable form, 1-D row and column vectors that the frame broadcasts.
 
 Where glome_tpu runs passes 1-4 as one lax.scan at one shared static
 width and compacts each pass into occupancy-tuned capacities
@@ -35,7 +40,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from . import telemetry
@@ -71,6 +75,39 @@ _PASS_OFFSETS = (
 )
 
 
+class _Geometry:
+    """The stencil's static geometry over the tile-padded (Hp, Wp) frame
+    of S-pixel tiles, on one device, as 1-D vectors: the residues y % 4
+    (a column) and x % 4, each pass's mask over the 4x4 residue grid,
+    the tile-boundary masks of the neighbour offsets -2..2 along x and
+    along y, and the tile-edge masks (lx == S-1 along x, ly == S-1 a
+    column)."""
+
+    def __init__(self, Hp: int, Wp: int, S: int, dev):
+        y = torch.arange(Hp, device=dev)[:, None]
+        x = torch.arange(Wp, device=dev)
+        self.y4, self.x4 = y % 4, x % 4
+        r = torch.arange(4, device=dev)
+        rx, ry = r, r[:, None]
+        even = (rx % 2 == 0) & (ry % 2 == 0)
+        self.in_pass = torch.stack([
+            even & ((rx + ry) % 4 == 0), even & ((rx + ry) % 4 == 2),
+            (rx % 2 == 1) & (ry % 2 == 1), (rx + ry) % 2 == 1])
+        ly, lx = y % S, x % S
+        self.okx = {d: (lx + d >= 0) & (lx + d < S) for d in range(-2, 3)}
+        self.oky = {d: (ly + d >= 0) & (ly + d < S) for d in range(-2, 3)}
+        self.xe, self.ye = lx == S - 1, ly == S - 1
+
+    def pass_mask(self, i: int):
+        """Pass i + 1's (Hp, Wp) mask."""
+        return self.in_pass[i][self.y4, self.x4]
+
+    def ok(self, dx: int, dy: int):
+        """Where the neighbour at (+dx, +dy) lies in the pixel's own tile,
+        (Hp, Wp)."""
+        return self.okx[dx] & self.oky[dy]
+
+
 class AARenderer:
     """Adaptive-AA frame renderer for one compiled scene.  The device is
     that of the scene tensors passed to render()."""
@@ -81,6 +118,7 @@ class AARenderer:
         self.config = config
         self.last_ray_counts = {}
         self.last_overflow = {}
+        self._geo = None            # ((Hp, Wp, S, device), _Geometry)
 
     # -- helpers -----------------------------------------------------------
 
@@ -115,16 +153,27 @@ class AARenderer:
             return out.t().reshape(5, Hp, Wp), req
 
     @staticmethod
-    def _shift(img, dx, dy, ok):
+    def _shift(img, dx, dy, geo):
         """Neighbor read at (+dx, +dy) with out-of-tile = transparent-
         infinite (Glome.hs:233-235): shift the plane stack, then apply
-        the static tile-boundary mask `ok` (Hp, Wp)."""
+        the static tile-boundary mask of the offset."""
         _, Hp, Wp = img.shape
         pad = torch.nn.functional.pad(img, (2, 2, 2, 2))
         sh = pad[:, 2 + dy:2 + dy + Hp, 2 + dx:2 + dx + Wp]
         oob = torch.zeros((5, 1, 1), dtype=img.dtype, device=img.device)
         oob[4] = INFINITY
-        return torch.where(ok[None], sh, oob)
+        return torch.where(geo.ok(dx, dy), sh, oob)
+
+    def _geometry(self, Hp, Wp, S, dev):
+        """The static geometry of the frame size on `dev`, built when the
+        key differs from the last frame's; counts aa.geometry_builds (1
+        on a build, 0 on a hit) in every frame."""
+        key = (Hp, Wp, S, dev)
+        build = self._geo is None or self._geo[0] != key
+        if build:
+            self._geo = (key, _Geometry(Hp, Wp, S, dev))
+        telemetry.count("aa.geometry_builds", int(build))
+        return self._geo[1]
 
     # -- the pipeline ------------------------------------------------------
 
@@ -133,10 +182,11 @@ class AARenderer:
         arrays' device.  Per-pass requested-ray counts (the reference's
         1/8..2 rays/px cost model) land in self.last_ray_counts; the
         queues are exact, so self.last_overflow is all zeros.  One call
-        is one telemetry frame: the spans aa.mask_planes (the static
-        masks, built and uploaded), aa.variance (the decisions and the
-        final combine; its mask planes are child spans) and
-        aa.pass_setup (each pass's work around its trace call)."""
+        is one telemetry frame: the span aa.mask_planes (the static
+        geometry's lookup, and its build in a frame that builds it), the
+        counter aa.geometry_builds, the spans aa.variance (the decisions
+        and the final combine) and aa.pass_setup (each pass's work
+        around its trace call)."""
         with telemetry.frame("aa.frame"):
             return self._render(arrays)
 
@@ -147,35 +197,19 @@ class AARenderer:
         Hp = math.ceil(cfg.yres / S) * S
         Wp = math.ceil(cfg.xres / S) * S
         th = (None,) + tuple(cfg.thresholds)
-
-        def plane(m):
-            with telemetry.span("aa.mask_planes"):
-                return torch.as_tensor(m, device=dev)
-
-        def okmask(dx, dy):
-            with telemetry.span("aa.mask_planes"):
-                return torch.as_tensor((lx + dx >= 0) & (lx + dx < S)
-                                       & (ly + dy >= 0) & (ly + dy < S),
-                                       device=dev)
-
-        # static mask planes
         with telemetry.span("aa.mask_planes"):
-            y, x = np.mgrid[0:Hp, 0:Wp]
-            lx, ly = x % S, y % S
-            even = (x % 2 == 0) & (y % 2 == 0)
-            masks = [even & ((x + y) % 4 == 0), even & ((x + y) % 4 == 2),
-                     (x % 2 == 1) & (y % 2 == 1), (x + y) % 2 == 1]
+            geo = self._geometry(Hp, Wp, S, dev)
 
         counts = {}
         img = torch.zeros((5, Hp, Wp), dtype=torch.float32, device=dev)
         img[4] = INFINITY
         for i in range(4):
-            mask = plane(masks[i])
+            mask = geo.pass_mask(i)
             if _PASS_OFFSETS[i] is None:
                 need = mask
             else:
                 with telemetry.span("aa.variance"):
-                    a, b, c, d = [self._shift(img, dx, dy, okmask(dx, dy))
+                    a, b, c, d = [self._shift(img, dx, dy, geo)
                                   for dx, dy in _PASS_OFFSETS[i]]
                     variance = torch.maximum(_ccmp(a, c), _ccmp(b, d))
                     need = mask & (variance > th[i])
@@ -187,18 +221,16 @@ class AARenderer:
         # pass 5: supersample at pixel corners and average (Glome.hs:299-321)
         with telemetry.span("aa.variance"):
             a = img
-            b = self._shift(img, 0, 1, okmask(0, 1))
-            c = self._shift(img, 1, 1, okmask(1, 1))
-            d = self._shift(img, 1, 0, okmask(1, 0))
+            b = self._shift(img, 0, 1, geo)
+            c = self._shift(img, 1, 1, geo)
+            d = self._shift(img, 1, 0, geo)
             variance = torch.maximum(_ccmp(a, c), _ccmp(b, d))
             need = variance > th[4]
             corner = _cavg(a, b, c, d)
         corner, counts["pass5"] = self._masked_trace(arrays, corner, need,
                                                      off=0.5)
         with telemetry.span("aa.variance"):
-            last = S - 1
-            xe = plane(lx == last)[None]
-            ye = plane(ly == last)[None]
+            xe, ye = geo.xe, geo.ye
             cell = torch.where(xe, torch.where(ye, corner, _cavg(a, b)),
                                torch.where(ye, _cavg(a, d),
                                            _cavg(a, b, c, d)))

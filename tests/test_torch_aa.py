@@ -8,6 +8,12 @@ Image tolerance: atol 1e-6, test_aa.py's own.  The counts decide which
 pixels are traced and which interpolated; with every decision equal to
 glome_tpu's the two images differ only by float32 shading in another
 op order (2.2e-8 at most, measured), far inside it.
+
+The stencil's static geometry, built once per frame size on the device
+in separable form, equals the numpy planes the frame once built every
+frame, element for element, and a frame on either gives the same image,
+depth and counts bit for bit; a renderer builds it in its first frame
+and at a new frame size only (the counter aa.geometry_builds).
 """
 
 import os
@@ -19,6 +25,8 @@ import torch
 import glome_tpu as G
 import glome_tpu_torch as T
 from glome_tpu.aa import AARenderer as JAARenderer
+from glome_tpu_torch import aa as A
+from glome_tpu_torch import telemetry as TM
 from glome_tpu_torch.intersect import GROUPS, MEGA
 from glome_tpu_torch.aa import AARenderer
 
@@ -48,8 +56,8 @@ def _scene(P):
 
 
 def _cfg(P, **kw):
-    return P.RenderConfig(xres=64, yres=64, blocksize=32, maxdepth=2,
-                          min_tiles=0, **kw)
+    return P.RenderConfig(**{"xres": 64, "yres": 64, "blocksize": 32,
+                             "maxdepth": 2, "min_tiles": 0, **kw})
 
 
 def _render(solid=None, tracer_cls="WavefrontTracer", route=MEGA, **kw):
@@ -115,6 +123,99 @@ def test_aa_counts_and_golden_match_glome_tpu(glome_tpu_counts, tracer_cls,
     print(f"{tracer_cls}/{route}: max |rgb - aa_64.npy| "
           f"{np.abs(rgb - gold).max():.3g}")
     np.testing.assert_allclose(rgb, gold, atol=1e-6)
+
+
+# every neighbour offset the stencil reads: passes 2-4's and pass 5's
+OFFSETS = sorted({o for offs in A._PASS_OFFSETS[1:] for o in offs}
+                 | {(0, 1), (1, 1), (1, 0)})
+
+
+def _numpy_planes(Hp, Wp, S):
+    """The static planes as the frame built them in numpy before the
+    geometry was kept: the four pass masks, the tile-boundary mask of
+    each offset and the two tile-edge masks, each (Hp, Wp)."""
+    y, x = np.mgrid[0:Hp, 0:Wp]
+    lx, ly = x % S, y % S
+    even = (x % 2 == 0) & (y % 2 == 0)
+    masks = [even & ((x + y) % 4 == 0), even & ((x + y) % 4 == 2),
+             (x % 2 == 1) & (y % 2 == 1), (x + y) % 2 == 1]
+    ok = {(dx, dy): (lx + dx >= 0) & (lx + dx < S)
+          & (ly + dy >= 0) & (ly + dy < S) for dx, dy in OFFSETS}
+    return masks, ok, lx == S - 1, ly == S - 1
+
+
+class _NumpyGeometry:
+    """The geometry's interface over the numpy planes, uploaded whole."""
+
+    def __init__(self, Hp, Wp, S, dev):
+        masks, ok, xe, ye = _numpy_planes(Hp, Wp, S)
+        self.masks = [torch.as_tensor(m, device=dev) for m in masks]
+        self.planes = {k: torch.as_tensor(v, device=dev)
+                       for k, v in ok.items()}
+        self.xe = torch.as_tensor(xe, device=dev)
+        self.ye = torch.as_tensor(ye, device=dev)
+
+    def pass_mask(self, i):
+        return self.masks[i]
+
+    def ok(self, dx, dy):
+        return self.planes[(dx, dy)]
+
+
+def _resident_bytes(geo):
+    tensors = [v for v in vars(geo).values() if torch.is_tensor(v)]
+    tensors += [t for v in vars(geo).values() if isinstance(v, dict)
+                for t in v.values()]
+    return sum(t.element_size() * t.numel() for t in tensors)
+
+
+@pytest.mark.parametrize("xres,yres,S", [
+    (720, 480, 65),     # the viewer's frame: padded to 780x520
+    (100, 70, 32),      # no side a multiple of S: padded to 128x96
+    (30, 20, 7),        # an odd padded width and height: 35x21
+    (17, 11, 2)])       # a small S
+def test_geometry_equals_the_numpy_planes(xres, yres, S):
+    Hp, Wp = -(-yres // S) * S, -(-xres // S) * S
+    geo = A._Geometry(Hp, Wp, S, torch.device("cpu"))
+    masks, ok, xe, ye = _numpy_planes(Hp, Wp, S)
+    assert len(OFFSETS) == 12
+    for i in range(4):
+        np.testing.assert_array_equal(geo.pass_mask(i).numpy(), masks[i])
+    for dx, dy in OFFSETS:
+        np.testing.assert_array_equal(geo.ok(dx, dy).numpy(), ok[dx, dy])
+    np.testing.assert_array_equal(
+        torch.broadcast_to(geo.xe, (Hp, Wp)).numpy(), xe)
+    np.testing.assert_array_equal(
+        torch.broadcast_to(geo.ye, (Hp, Wp)).numpy(), ye)
+    if (xres, yres, S) == (720, 480, 65):
+        assert _resident_bytes(geo) < 2 ** 20
+
+
+def _builds(after):
+    return [f.counts.get("aa.geometry_builds") for f in TM.frames()
+            if f.id > after and f.name == "aa.frame"]
+
+
+def test_geometry_is_built_once_per_frame_size(monkeypatch):
+    """Two frames of one renderer equal each other and a frame on the
+    numpy planes bit for bit; the first builds the geometry, the second
+    finds it; a renderer at another frame size builds its own."""
+    before = TM.frames()[-1].id if TM.frames() else -1
+    rgb, depth, r = _render()
+    counts = dict(r.last_ray_counts)
+    rgb2, depth2 = (t.numpy() for t in r.render(
+        T.to_torch(r.tracer.compiled.arrays(), "cpu")))
+    np.testing.assert_array_equal(rgb2, rgb)
+    np.testing.assert_array_equal(depth2, depth)
+    assert r.last_ray_counts == counts
+    wide = _render(xres=96)[2]
+    assert wide.last_ray_counts["pass1"] == 96 * 64 // 8
+    assert _builds(before) == [1, 0, 1]
+    monkeypatch.setattr(A, "_Geometry", _NumpyGeometry)
+    rgb3, depth3, r3 = _render()
+    np.testing.assert_array_equal(rgb3, rgb)
+    np.testing.assert_array_equal(depth3, depth)
+    assert r3.last_ray_counts == counts
 
 
 def test_aa_uses_the_callers_tracer():

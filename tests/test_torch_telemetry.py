@@ -172,16 +172,18 @@ def test_one_record_per_aa_call(scene, cfg):
     assert f.sums["wavefront.trace"][0] == 5
     assert f.sums["wavefront.count_read"][0] == 10
     assert f.counts["graphs.host_reads"] == 10
-    # 4 pass masks, 12 + 3 neighbour masks, the 2 edge planes, the numpy
-    assert f.sums["aa.mask_planes"][0] == 22
+    # one lookup of the static geometry, which a new renderer builds
+    assert f.sums["aa.mask_planes"][0] == 1
+    assert f.counts["aa.geometry_builds"] == 1
     assert f.sums["aa.variance"][0] == 5
     # two spans around each trace call and two around each pass's
     assert f.sums["aa.pass_setup"][0] == 20
-    # the variance's self time leaves out the mask planes built inside it
+    # the variance spans hold no child span: their self time is their time
     v = f.sums["aa.variance"]
-    inner = sum(b - a for n, a, b, p in f.spans if n == "aa.mask_planes"
-                and f.spans[p][0] == "aa.variance")
-    assert inner > 0 and v[2] == v[1] - inner
+    assert v[2] == v[1]
+    for name, _a, _b, p in f.spans:
+        if name in ("aa.mask_planes", "aa.variance"):
+            assert f.spans[p][0] == "aa.frame"
     # no program span encloses a trace call but the frame
     for name, _a, _b, p in f.spans:
         if name == "wavefront.trace":
