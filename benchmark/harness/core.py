@@ -170,7 +170,8 @@ def run(args, start: float, device=None, sizes=None, root: str = M.ROOT):
         cell=cell["name"], conf=conf, mix=mix, entry=mix["entry"],
         xres=xres, yres=yres, pixels=xres * yres, chips=cell["chips"],
         seed=args.seed, seconds=args.seconds, trace=bool(args.trace),
-        device=device, start=start, prof=None, breakdown=None, busy=None)
+        device=device, start=start, prof=None, breakdown=None, busy=None,
+        root=root)
     e2e, numbers, parts = measure_frames(rec)
     correct, rows = CK.verdict(numbers, limits)
     failed = sum(not CK.verdict(p, limits)[0] for p in parts)
@@ -267,7 +268,7 @@ def measure_frames(rec):
     free_device(device)
     from ..reference import Reference
     t0 = time.perf_counter()
-    ref = Reference(rec.conf, rec.xres, rec.yres, device)
+    ref = Reference(rec.conf, rec.xres, rec.yres, device, checkout=rec.root)
     parts = compare_kept(kept, reference_frames(ref, mix, rec.seed, n), mix)
     log(f"reference {time.perf_counter() - t0:.3f} s over {len(parts)} "
         f"frames")

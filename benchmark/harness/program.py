@@ -44,11 +44,14 @@ def scene(conf: dict, device):
 
 def render_config(T, conf: dict, xres: int, yres: int):
     """The configuration's RenderConfig at xres x yres (`tuned`: the
-    queue schedule measured on TestScene, RenderConfig.tuned)."""
+    queue schedule measured on TestScene, RenderConfig.tuned), with its
+    `background` (NFF's `b`, the miss colour) where it names one."""
     kw = dict(xres=xres, yres=yres, maxdepth=conf["maxdepth"],
               blocksize=conf.get("blocksize", 65),
               thresholds=tuple(conf.get("thresholds",
                                         (0.14, 0.15, 0.16, 0.18))))
+    if conf.get("background") is not None:
+        kw["background"] = tuple(float(c) for c in conf["background"])
     return (T.RenderConfig.tuned(**kw) if conf.get("render_config") == "tuned"
             else T.RenderConfig(**kw))
 

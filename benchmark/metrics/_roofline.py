@@ -29,7 +29,8 @@ RAY_BYTES = 4 * (3 + 3 + 1) + 4 + 4
 XFM_FLOATS = 12
 
 # the floats that define each primitive's shape (reference/scene.py)
-SHAPE_FLOATS = {"sphere": 4, "plane": 4, "box": 6, "cylinder": 3, "cone": 4}
+SHAPE_FLOATS = {"sphere": 4, "plane": 4, "box": 6, "cylinder": 3, "cone": 4,
+                "triangle": 9, "trianglenorm": 9}
 
 
 def scene_bytes(root) -> int:

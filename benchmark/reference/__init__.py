@@ -1,10 +1,12 @@
 """The plain reference of every configuration's frames.
 
 It builds the configuration's scene from its own description
-(scene.py, written from Glome's scene source) and traces it with its own
-brute-force Whitted tracer (tracer.py): every ray against every primitive,
-plain torch, nothing of the program's.  The harness hands both sides the
-same configuration, camera offset and pixels.
+(scenes/<builder>.py, written from the scene's source with the nodes of
+scene.py) and traces it with its own brute-force Whitted tracer
+(tracer.py): every ray against every primitive, plain torch, nothing of
+the program's.  The harness hands both sides the
+same configuration, camera offset and pixels; a configuration's
+`background` (NFF's `b`) is the colour of a ray that hits nothing.
 
 The reference computes in float64, so that its own rounding stays far
 under the program's float32 (the configuration's precision).  The
@@ -48,8 +50,8 @@ class Reference:
     """One configuration's scene, traced plainly on `device`."""
 
     def __init__(self, conf: dict, xres: int, yres: int, device,
-                 control: bool = False):
-        root, lights, self.cam = S.build(conf["scene"])
+                 control: bool = False, checkout: str = None):
+        root, lights, self.cam = S.build(conf["scene"], checkout)
         self.device = torch.device(device)
         self.control = control
         self.cfg = types.SimpleNamespace(
@@ -60,7 +62,7 @@ class Reference:
         store = _bf16 if control else (lambda t: t)
         self.dtype = torch.float32 if control else torch.float64
         self.tracer = Tracer(root, lights, conf["maxdepth"], self.device,
-                             self.dtype, store)
+                             self.dtype, store, conf.get("background"))
 
     def camera(self, fwd):
         return self.cam._replace(fwd=np.asarray(fwd, np.float64))

@@ -8,6 +8,13 @@ the same as the program states them):
 - A primitive outside CSG is hit at its entry crossing if that lies ahead
   (t > 0), else at its exit.  Transforms map the ray into the
   primitive's own space unnormalised, so t is the world distance.
+- A triangle (Triangle.hs) is a surface with no inside: Moller-Trumbore
+  with barycentric rejects, hit from either side at its one crossing,
+  never in its own plane.  A transform is baked into it (Triangle.hs:
+  164-177): the vertices by the matrix, the vertex normals by its linear
+  part, made unit.  Its flat normal is (p2 - p1) x (p3 - p1) of the
+  world vertices, whichever side the ray comes from; the smooth one the
+  barycentric blend of the vertex normals, made unit.
 - CSG: a crossing of a member of clause i is a surface of the object when
   the point is inside (positive clause) or outside (negative) every other
   clause; a crossing of a difference's B must also leave B (the point
@@ -20,6 +27,8 @@ the same as the program states them):
   light / d^2 times (Blinn specular ks, diffuse kd); mirrors, refraction
   (ior entering, 1 / ior leaving, total internal reflection black) and
   portals trace children one level down; depth 0 is a transparent miss.
+  With a background (NFF's `b`, Shader.hs missshade) a ray that hits
+  nothing takes that colour, opaque, at every depth above 0.
 """
 
 from __future__ import annotations
@@ -31,7 +40,9 @@ from . import scene as S
 
 INF = 1.0e6
 DELTA = S.DELTA
-KINDS = ("sphere", "plane", "box", "cylinder", "cone")
+KINDS = ("sphere", "plane", "box", "cylinder", "cone", "triangle",
+         "trianglenorm")
+TRIANGLES = ("triangle", "trianglenorm")
 # (ray, primitive) pairs a step of the search holds
 PAIR_BUDGET = 1 << 24
 
@@ -60,7 +71,10 @@ class Flat:
             return
         if isinstance(node, S.Prim):
             local = stack[:len(stack) - outer] if role else ()
-            self.leaves.append((node.kind, node.p, m, stack, local, role))
+            p = node.p
+            if node.kind in TRIANGLES:
+                p, m = _bake(node.kind, p, m), np.eye(4)
+            self.leaves.append((node.kind, p, m, stack, local, role))
         elif isinstance(node, S.Group):
             for it in node.items:
                 self._walk(it, m, stack, role, outer)
@@ -86,6 +100,16 @@ class Flat:
                                                        len(self.leaves)))))
         else:
             raise TypeError(f"unknown node {type(node).__name__}")
+
+
+def _bake(kind, p, m):
+    """A triangle's numbers in world space under the matrix m."""
+    q = np.asarray(p, np.float64).reshape(-1, 3)
+    out = [q[:3] @ m[:3, :3].T + m[:3, 3]]
+    if kind == "trianglenorm":
+        n = q[3:] @ m[:3, :3].T
+        out.append(n / np.linalg.norm(n, axis=1, keepdims=True))
+    return tuple(np.concatenate(out).reshape(-1).tolist())
 
 
 class Table:
@@ -143,12 +167,32 @@ def _slab(lo_b, hi_b, o, d):
     return lo, hi
 
 
+def _vertices(P):
+    """A triangle table's vertices (L, 3) each, and its normals'."""
+    return [torch.stack(P[k:k + 3], -1) for k in range(0, len(P), 3)]
+
+
 def interval(kind, p, o, d):
     """(t_in, t_out, in_part, out_part) of rays o, d (R, L, 3) in each
     leaf's space: the entry and exit distances (INF where none) and which
-    part each lies on (box: the axis; cylinder and cone: 3 for a cap)."""
+    part each lies on (box: the axis; cylinder and cone: 3 for a cap).
+    A triangle's one crossing is its entry."""
     P = [p[:, k] for k in range(p.shape[1])]
     zero = torch.zeros(o.shape[:2], dtype=torch.int64, device=o.device)
+    if kind in TRIANGLES:
+        p1, p2, p3 = _vertices(P)[:3]
+        e1, e2 = p2 - p1, p3 - p1
+        s1 = torch.linalg.cross(d, e2.expand_as(d))
+        div = (s1 * e1).sum(-1)
+        inv = 1.0 / torch.where(div == 0.0, 1.0, div)
+        w = o - p1
+        b1 = (w * s1).sum(-1) * inv
+        s2 = torch.linalg.cross(w, e1.expand_as(w))
+        b2 = (d * s2).sum(-1) * inv
+        t = (e2 * s2).sum(-1) * inv
+        ok = (div != 0.0) & (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0) \
+            & (b1 + b2 <= 1.0)
+        return torch.where(ok, t, INF), torch.full_like(t, INF), zero, zero
     if kind == "sphere":
         c = torch.stack(P[:3], -1)
         oc = o - c
@@ -215,6 +259,8 @@ def interval(kind, p, o, d):
 def inside(kind, p, x):
     """Strictly inside each leaf: x (R, L, 3) in the leaves' spaces."""
     P = [p[:, k] for k in range(p.shape[1])]
+    if kind in TRIANGLES:
+        return torch.zeros(x.shape[:2], dtype=torch.bool, device=x.device)
     if kind == "sphere":
         c = torch.stack(P[:3], -1)
         return ((x - c) ** 2).sum(-1) < P[3] * P[3]
@@ -240,6 +286,21 @@ def normal(kind, p, x, d, part, slot):
         return x - torch.stack(P[:3], -1)
     if kind == "plane":
         return torch.stack(P[:3], -1)
+    if kind in TRIANGLES:
+        vs = _vertices(P)
+        e1, e2 = vs[1] - vs[0], vs[2] - vs[0]
+        if kind == "triangle":
+            return torch.linalg.cross(e1, e2)
+        # the barycentrics of x, by the edges' Gram matrix
+        w = x - vs[0]
+        d00, d01, d11 = ((e1 * e1).sum(-1), (e1 * e2).sum(-1),
+                         (e2 * e2).sum(-1))
+        d20, d21 = (w * e1).sum(-1), (w * e2).sum(-1)
+        den = d00 * d11 - d01 * d01
+        b1 = (d11 * d20 - d01 * d21) / den
+        b2 = (d00 * d21 - d01 * d20) / den
+        return _unit((1.0 - b1 - b2)[:, None] * vs[3] + b1[:, None] * vs[4]
+                     + b2[:, None] * vs[5])
     sgn = torch.where(slot == 0, -1.0, 1.0)
     if kind == "box":
         e = torch.nn.functional.one_hot(part, 3).to(x.dtype)
@@ -527,7 +588,7 @@ class Tracer:
     """The reference's trace of one configuration's scene."""
 
     def __init__(self, root, lights, maxdepth, device, dtype,
-                 store=lambda t: t):
+                 store=lambda t: t, background=None):
         self.textures = {}
         self.root = Scene(root, self.textures, device, dtype, store)
         self.frames = {}
@@ -541,6 +602,9 @@ class Tracer:
             self.tex[tid] = tex
         self.lights = tuple(lights)
         self.maxdepth = maxdepth
+        self.background = (None if background is None
+                           else torch.tensor((*background, 1.0), dtype=dtype,
+                                             device=device))
 
     def _uses(self, stack, pred):
         ids = [i for i, t in enumerate(self.tex)
@@ -581,6 +645,8 @@ class Tracer:
                 c = torch.where((tids == tid)[:, None], cols[tid], c)
             opaque = acc[:, 3] + DELTA >= 1.0
             acc = torch.where((has & ~opaque)[:, None], cafold(acc, c), acc)
+        if self.background is not None:
+            acc = torch.where(h["hit"][:, None], acc, self.background)
         return acc, h["t"]
 
     def _sub(self, mask, o, d, tmax, recurs, scene, lights):
