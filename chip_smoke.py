@@ -260,6 +260,16 @@ micro_kwide), and checks them in phases:
      capture frame's seconds, captures and host reads per frame, the
      level widths and the graph pools' bytes beside
      torch.cuda.max_memory_allocated.
+ 34. SPD balls at size factor 5 (scenes/spd_balls.balls: 66,430 spheres
+     in one group, which the plan routes to K2, the floor fan in K1),
+     512x512 depth 3 through Renderer.render on the compiled frame:
+     every K1 and K2 call of its capture frame held against its plain
+     version on that call's own static-width inputs, on every lane
+     (intersect: hit, t and winner; shadow: the blocked mask), and the
+     frame's launches (6 K1 + 6 K2: each level's intersect and shadow
+     batch), counts reset just before it, under "spd_balls5_512" in
+     launches_by_path; then phase 33's gates on the same frame
+     (compiled = eager on every lane, zero captures after the first).
 
 Phases 10, 16 and 22 take their profiled frame and per-launch
 host/device split from the same tool (profile_kernels, launch_split).
@@ -2761,6 +2771,49 @@ def main():
         return ok
     phase("33 compiled frame: the wavefront frame captured as CUDA graphs "
           "and replayed, against the eager frame", p_compiled)
+
+    # -- 34. SPD balls at size factor 5 -------------------------------------
+    def p_balls():
+        from glome_tpu_torch.scenes.spd_balls import balls
+        t0 = time.perf_counter()
+        solid, lights, c = balls(5)
+        bc = T.compile_scene(solid, lights)
+        bplan = MK.get_plan(bc)
+        barrs = T.to_torch(bc.arrays(), dev)
+        print(f"  SPD balls size 5: {bplan.n_prims} prims, K2 groups "
+              f"{bplan.blocks}, host parse+compile+plan "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        bcfg = T.RenderConfig(xres=512, yres=512, maxdepth=3,
+                              background=(0.078, 0.361, 0.753))
+        want = {"mega_select": 2 * bcfg.maxdepth,
+                "block_select": 2 * bcfg.maxdepth}
+        renderer = T.Renderer(T.WavefrontTracer(bc, bcfg), c, bcfg)
+        reset_counts()
+        # the capture frame: its warm-ups' kernel inputs are recorded and
+        # held against the plain versions
+        (rgb, _depth), log = record_inputs(lambda: renderer.render(barrs))
+        ccounts = read_counts("spd_balls5_512_capture")
+        reset_counts()
+        renderer.render(barrs)
+        counts = read_counts("spd_balls5_512")
+        print(f"  compiled frame: calls "
+              f"{[(n, a[rays_at[n]].shape[1]) for n, a in log]}")
+        ok = (bplan.blocks == [(0, 0)]
+              and sorted(n for n, _a in log)
+              == sorted(k for k, v in want.items() for _ in range(v))
+              and bool(torch.isfinite(rgb).all()))
+        ok &= check_recorded("spd_balls5 compiled frame", log, True)
+        ok &= all(cn[k] == want.get(k, 0) for k in kernel_fns
+                  for cn in (ccounts, counts))
+        ok &= ccounts["plain"] == counts["plain"] == 0
+        del renderer, log
+
+        def make(frame):
+            r = T.Renderer(T.WavefrontTracer(bc, bcfg, frame=frame), c, bcfg)
+            return r.tracer, lambda: r.render(barrs, 0.25)
+        return compiled_case("spd_balls5_512x512_render", make, want) and ok
+    phase("34 SPD balls size 5 512x512 depth 3: K1 and K2 on the compiled "
+          "frame", p_balls)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

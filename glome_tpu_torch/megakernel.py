@@ -1691,13 +1691,17 @@ def _group_seed(rays, si, t, wid, shadow):
     return seed
 
 
-def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select):
+def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select,
+                k2_live=None):
     """Merge the block-dense groups (plan.blocks): each is one K2 launch
     seeded with the best t so far, so the chain keeps cross-group
-    culling."""
+    culling.  A list `k2_live` gets each launch's live lanes (seed above
+    0), a 0-d device tensor, in launch order."""
     from .block_kernel import block_pass
     for si, gi in _big_groups(compiled, plan.blocks, shadow):
         seed = _group_seed(rays, si, t, wid, shadow)
+        if k2_live is not None:
+            k2_live.append((seed > 0).sum())
         t2, l2 = block_pass(compiled.scenes[si], arrays["scenes"][si], gi,
                             rays, seed, shadow, select)
         better = (t2 < seed) & (l2 >= 0)
@@ -1723,13 +1727,14 @@ def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select):
     return t, wid
 
 
-def _select_all(compiled, plan, arrays, rays, shadow, select):
+def _select_all(compiled, plan, arrays, rays, shadow, select, k2_live=None):
     """K1, then the K2 groups, then the K3 groups, each launch seeded by
-    the best t so far: (t, wid, aux)."""
+    the best t so far: (t, wid, aux).  k2_live: as in _run_blocks."""
     mega, block, mesh = kernel_set(select)
     tables = pack_tables(plan, compiled, arrays)
     t, wid, aux = mega(tables, rays, shadow)
-    t, wid = _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, block)
+    t, wid = _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, block,
+                         k2_live)
     t, wid = _run_external(compiled, plan, arrays, rays, t, wid, shadow, mesh)
     return t, wid, aux
 
@@ -1767,24 +1772,29 @@ def mega_shadow(compiled, arrays, o, d, sid=None, tmax=None,
     return wid >= 0
 
 
-def mega_intersect_table(compiled, arrays, table, select: str = KERNELS):
+def mega_intersect_table(compiled, arrays, table, select: str = KERNELS,
+                         k2_live=None):
     """Table-native nearest hit: `table` is (8, N) float32 component
     planes [ox,oy,oz,dx,dy,dz,tmax,sid] (dead lanes tmax 0, sid -1).
-    Returns the finalized Hit; o, d for finalize are the table's rows."""
+    Returns the finalized Hit; o, d for finalize are the table's rows.
+    k2_live: as in _run_blocks."""
     plan = get_plan(compiled)
     rays = table.detach().clone()
     rays[6] = torch.clamp(rays[6], max=INFINITY)
-    t, wid, aux = _select_all(compiled, plan, arrays, rays, False, select)
+    t, wid, aux = _select_all(compiled, plan, arrays, rays, False, select,
+                              k2_live)
     o = table[0:3].t()
     d = table[3:6].t()
     return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux)
 
 
-def mega_shadow_table(compiled, arrays, table, select: str = KERNELS):
+def mega_shadow_table(compiled, arrays, table, select: str = KERNELS,
+                      k2_live=None):
     """Table-native any-hit occlusion: `table` as in
     mega_intersect_table (row 6 = segment tmax; 0 = dead lane).
-    Returns (N,) bool blocked."""
+    Returns (N,) bool blocked.  k2_live: as in _run_blocks."""
     plan = get_plan(compiled)
     _t, wid, _a = _select_all(compiled, plan, arrays,
-                              table.detach().contiguous(), True, select)
+                              table.detach().contiguous(), True, select,
+                              k2_live)
     return wid >= 0

@@ -91,6 +91,8 @@ class Renderer:
         self.config = config or tracer.config
         self.ray_chunk = ray_chunk
         self.last_overflow = None
+        self._order_key = None
+        self._order = None
 
     # differentiable core: rays -> premultiplied rgb + depth (+ queue
     # overflow counts, all zero with exact queues)
@@ -106,22 +108,38 @@ class Renderer:
                               torch.as_tensor(yf, dtype=dtype, device=device))
         return primary_rays(self.cam, xc, yc, dtype=dtype)
 
+    def _tile_order(self, device):
+        """The frame size's tile_order as int32 on `device`, built once
+        per (xres, yres, device): the only table a frame keeps on the
+        card (1.4 MB at 720x480)."""
+        cfg = self.config
+        key = (cfg.xres, cfg.yres, str(device))
+        if self._order_key != key:
+            self._order = torch.as_tensor(
+                tile_order(cfg.xres, cfg.yres).astype(np.int32),
+                device=device)
+            self._order_key = key
+        return self._order
+
     def render(self, arrays, subpixel_offset: float = 0.0):
         """Render a full frame at 1 ray/pixel; returns (H, W, 3) rgb in
         [0, 1] (premultiplied by alpha, like the reference blit,
         Glome.hs:353-358) and the (H, W) depth map.  Rays are traced in
         32x32-tile order (see tile_order) and scattered back.  One call
         is one telemetry frame: the spans render.ray_setup (up to the
-        first trace call) and render.scatter (after the last)."""
+        first trace call) and render.scatter (after the last).  The
+        set-up and the scatter run on the device from the frame size's
+        tile order (_tile_order); the pixel coordinates are passed as
+        temporaries, so none is held while the rays are traced."""
         with telemetry.frame("render.frame"):
             cfg = self.config
             with telemetry.span("render.ray_setup"):
                 device = arrays["lights"]["pos"].device
-                ys, xs = np.mgrid[0:cfg.yres, 0:cfg.xres]
-                perm = tile_order(cfg.xres, cfg.yres)
-                xf = xs.reshape(-1)[perm].astype(np.float32) + subpixel_offset
-                yf = ys.reshape(-1)[perm].astype(np.float32) + subpixel_offset
-                o, d = self.rays_for_pixels(xf, yf, device)
+                order = self._tile_order(device)
+                o, d = self.rays_for_pixels(
+                    (order % cfg.xres).float() + subpixel_offset,
+                    torch.div(order, cfg.xres, rounding_mode="floor").float()
+                    + subpixel_offset, device)
             n = o.shape[0]
             chunk = self.ray_chunk or n
             rgbs, depths = [], []
@@ -135,9 +153,13 @@ class Renderer:
                     self.last_overflow = (ov if self.last_overflow is None
                                           else self.last_overflow + ov)
             with telemetry.span("render.scatter"):
-                inv = np.empty_like(perm)
-                inv[perm] = np.arange(perm.shape[0])
-                inv_t = torch.as_tensor(inv, device=device)
-                rgb = torch.cat(rgbs)[inv_t].reshape(cfg.yres, cfg.xres, 3)
-                t = torch.cat(depths)[inv_t].reshape(cfg.yres, cfg.xres)
+                # each ray's result to its pixel: a permutation, so no
+                # index repeats
+                at = order.long()
+                rgb = torch.cat(rgbs)
+                rgb = torch.empty_like(rgb).index_copy_(0, at, rgb).reshape(
+                    cfg.yres, cfg.xres, 3)
+                t = torch.cat(depths)
+                t = torch.empty_like(t).index_copy_(0, at, t).reshape(
+                    cfg.yres, cfg.xres)
                 return torch.clamp(rgb, 0.0, 1.0), t

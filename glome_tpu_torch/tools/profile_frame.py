@@ -138,8 +138,6 @@ STAGES = (
     Stage("Renderer.render", (f"{_RENDER}:Renderer.render",),
           lambda a, s: {"rays": a["self"].config.xres
                         * a["self"].config.yres}),
-    Stage("tile_order", (f"{_RENDER}:tile_order",),
-          lambda a, s: {"rays": int(a["xres"]) * int(a["yres"])}),
     Stage("Renderer.rays_for_pixels", (f"{_RENDER}:Renderer.rays_for_pixels",),
           lambda a, s: {"rays": len(a["xf"])}),
     Stage("WavefrontTracer.trace", (f"{_WF}:WavefrontTracer.trace",),
@@ -745,7 +743,7 @@ def table(sp: Split):
 
 # --- the workloads -----------------------------------------------------------
 
-FRAME = ("Renderer.render", "tile_order", "Renderer.rays_for_pixels")
+FRAME = ("Renderer.render", "Renderer.rays_for_pixels")
 WAVEFRONT = ("WavefrontTracer.trace", "WavefrontTracer._down_level",
              "shadow_rays", "WavefrontTracer._up_level",
              "Tracer._fold_textures", "intersect_multi_table",
@@ -991,8 +989,9 @@ def profile_compiled(name, run, eager_run, tracer, device, smi=None):
         print(f"    {nm:24s} {calls:4d} {host:10.3f} {own:10.3f} "
               + (f"{dev:10.3f}" if dev is not None else NOT_MEASURED))
     lanes = {k: rec.counts.get(k, 0) for k in ("k1.lanes", "k1.live_lanes")}
+    k1 = sum(g[0] == "k1" for g in rec.launches)
     print(f"  K1 lanes launched {lanes['k1.lanes']}, live "
-          f"{lanes['k1.live_lanes']} over {len(rec.launches)} launches")
+          f"{lanes['k1.live_lanes']} over {k1} launches")
     return CompiledReport(name, capture_s, ms, wall, busy, per, counts,
                           per_frame, pool, same, spans, lanes)
 

@@ -212,6 +212,15 @@ class WavefrontTracer(Tracer):
         # level widths (graphs.FrameRun.stats)
         self.last_frame = {}
 
+    @staticmethod
+    def _record_launches(level, kind, lanes, live, k2_live):
+        """telemetry.launch of a batch's K1 launch (`live` lanes) and of
+        each of its K2 launches, which run the same lanes with k2_live's
+        live lanes (ints or pending() values)."""
+        telemetry.launch("k1", level, kind, lanes, live)
+        for n in k2_live:
+            telemetry.launch("k2", level, kind, lanes, n)
+
     def _segments(self):
         """Child-queue segment keys, in queue order."""
         cc = self.compiled
@@ -237,8 +246,11 @@ class WavefrontTracer(Tracer):
         dt = Q.dtype
         dev = Q.device
         Qc = Q.shape[1]
+        # each K2 launch's live lanes (0-d tensors), per batch kind
+        k2 = {"intersect": [], "shadow": []}
         hit = intersect_multi_table(cc, arrays, Q, select=self.select,
-                                    route=self.route)
+                                    route=self.route,
+                                    k2_live=k2["intersect"])
         self.last_batches += 1
 
         cdx, cdy, cdz = Q[3], Q[4], Q[5]
@@ -257,7 +269,8 @@ class WavefrontTracer(Tracer):
         if sh_segments:
             blocked = shadow_query_table(cc, arrays, table,
                                          select=self.select,
-                                         route=self.route)
+                                         route=self.route,
+                                         k2_live=k2["shadow"])
             self.last_batches += 1
             off = 0
             for li, idx in sh_segments:
@@ -383,8 +396,14 @@ class WavefrontTracer(Tracer):
             mask=stored_mask, extra=stored_extra,
         )
         if static:
-            return self._spawn_static(spawned, Qc, dt, dev, stored, sh_live)
+            # read with the child counts: each K2 launch's live lanes,
+            # intersect then shadow, and the shadow batch's
+            stored["k2_calls"] = (len(k2["intersect"]), len(k2["shadow"]))
+            return self._spawn_static(
+                spawned, Qc, dt, dev, stored,
+                torch.stack(k2["intersect"] + k2["shadow"] + [sh_live]))
         stored["shadow_lanes"] = table.shape[1] if sh_segments else None
+        stored["k2_live"] = k2
         if last or not child:
             Qnext = torch.zeros((8, 0), dtype=dt, device=dev)
         else:
@@ -393,22 +412,22 @@ class WavefrontTracer(Tracer):
         return Qnext, stored
 
     @staticmethod
-    def _spawn_static(spawned, B, dt, dev, stored, sh_live):
+    def _spawn_static(spawned, B, dt, dev, stored, lives):
         """The static level's child queue: every segment's rays scattered
         to (segment offset + rank) in a queue of bucket(n_seg * B) lanes,
         in the eager frame's order, dead lanes after.  stored gets the
         (n_seg,) counts, the (n_seg, B) source slot of each lane's child
         (valid where its mask is set), and "read": the counts then
-        sh_live, the shadow batch's live lanes (the level's one host
+        `lives`, the level's live-lane counts (the level's one host
         read)."""
         cap = bucket(len(spawned) * B)
         if not spawned:
             stored["counts"] = torch.zeros(0, dtype=torch.int64, device=dev)
-            stored["read"] = sh_live.reshape(1)
+            stored["read"] = lives
             return dead_table(cap, dt, dev), stored
         masks = torch.stack([m for m, _r in spawned])
         counts = masks.sum(dim=1)
-        stored["read"] = torch.cat([counts, sh_live.reshape(1)])
+        stored["read"] = torch.cat([counts, lives])
         offs = torch.cumsum(counts, 0) - counts
         slots = torch.stack([pack_static(offs[k], masks[k], cap)
                              for k in range(len(spawned))])
@@ -521,8 +540,10 @@ class WavefrontTracer(Tracer):
         tensor or ray that requires grad), on route=GROUPS, and when a
         capture or replay fails; it never carries on eagerly.  On CPU
         tensors it runs its static-width levels eagerly.  A call is the
-        telemetry span wavefront.trace; each K1 batch is a
-        telemetry.launch of "k1" (lanes launched, lanes live)."""
+        telemetry span wavefront.trace; each intersect and shadow batch
+        is a telemetry.launch of "k1" and one of "k2" per block group it
+        runs (lanes launched, lanes live: for K2 those its seed keeps
+        alive, megakernel._run_blocks)."""
         with telemetry.span("wavefront.trace"):
             if recurs is None:
                 recurs = self.config.maxdepth
@@ -556,10 +577,16 @@ class WavefrontTracer(Tracer):
                 stored_levels.append(stored)
                 if self.route == MEGA:
                     # exact queues: every lane launched holds a live ray
-                    telemetry.launch("k1", level, "intersect", lanes, lanes)
+                    # (K2's are those of the group's scene, and in a shadow
+                    # batch those K1 left unblocked)
+                    k2 = {k: [telemetry.pending(n) for n in v]
+                          for k, v in stored["k2_live"].items()}
+                    self._record_launches(level, "intersect", lanes, lanes,
+                                          k2["intersect"])
                     sh = stored["shadow_lanes"]
                     if sh is not None:
-                        telemetry.launch("k1", level, "shadow", sh, sh)
+                        self._record_launches(level, "shadow", sh, sh,
+                                              k2["shadow"])
 
             color = C.ca_transparent((0,), dt, o.device)
             t = torch.zeros((0,), dtype=dt, device=o.device)
@@ -614,24 +641,32 @@ class WavefrontTracer(Tracer):
                                         *(((Q,), ()) if level == 0
                                           else ((), (Q,))))
                 levels.append(stored)
-                telemetry.launch("k1", level, "intersect", B, live)
+                nc = stored["counts"].numel()
+                ni, ns = stored["k2_calls"]
                 read = None
-                if not last and stored["counts"].numel():
+                if not last and nc:
                     # the level's one host read: its child counts and its
-                    # shadow batch's live lanes
+                    # K2 and shadow batches' live lanes
                     with telemetry.span("wavefront.count_read"):
                         read = stored["read"].tolist()
                     run.count("host_reads")
+
+                def lives(i, j, read=read, stored=stored):
+                    # read[i:j]; a level with no read copies them without
+                    # blocking, each resolved when the record is read
+                    return (read[i:j] if read is not None else
+                            [telemetry.pending(stored["read"][k:k + 1])
+                             for k in range(i, j)])
+                self._record_launches(level, "intersect", B, live,
+                                      lives(nc, nc + ni))
                 if n_shadow:
-                    # a level with no read: its shadow count is copied
-                    # without blocking and resolved when the record is read
-                    telemetry.launch(
-                        "k1", level, "shadow", n_shadow * B,
-                        read[-1] if read is not None else
-                        telemetry.pending(stored["read"][-1:]))
+                    k1 = nc + ni + ns
+                    self._record_launches(level, "shadow", n_shadow * B,
+                                          lives(k1, k1 + 1)[0],
+                                          lives(nc + ni, k1))
                 if last:
                     break
-                n = sum(read[:-1]) if read is not None else 0
+                n = sum(read[:nc]) if read is not None else 0
                 # a level of no rays still runs, all dead lanes, as the
                 # eager frame runs its empty batches
                 B = bucket(n)

@@ -5,13 +5,14 @@ one frame record per Renderer.render / AARenderer.render call, with the
 spans the benchmark reads; the compiled frame's per-launch K1 lanes
 (the static widths) and live lanes (the eager frame's exact batch sizes
 on the same rays); host reads and images as the eager frame has them;
-the spans' intervals, mapped onto the profiler's clock, against the
-record_function ranges a CPU torch.profiler records for them; no range
-opened while no profiler collects; the ring's bounds.
+the K2 launches of a scene with a block group, beside K1's, in both
+frames; the spans' intervals, mapped onto the profiler's clock, against
+the record_function ranges a CPU torch.profiler records for them; no
+range opened while no profiler collects; the ring's bounds.
 
 On the card (`cuda`): a capture frame and a replay frame record equal
-per-launch counts, and no span, count or launch is recorded while a
-stream captures.
+per-launch counts, K2's among them on a scene with a block group, and no
+span, count or launch is recorded while a stream captures.
 
     python -m pytest tests/test_torch_telemetry.py -q
     python -m pytest --noconftest -m cuda tests/test_torch_telemetry.py -q
@@ -234,6 +235,95 @@ def test_host_reads_and_images_as_before(scene, cfg):
     assert f.sums["wavefront.count_read"][0] == cfg.maxdepth - 1
 
 
+# a triangle between the flake and its first light (4, 3, 2): in K1, it
+# blocks some shadow rays before K2 sees them
+OCCLUDER = "p 3\n3.6 2.0 1.9\n2.6 3.2 1.9\n3.2 2.6 1.0\n"
+
+
+@pytest.fixture(scope="module")
+def block_scene():
+    """SPD balls at size factor 2 with its 91 spheres routed to K2 (the
+    routing threshold lowered for the plan's build) and OCCLUDER."""
+    from glome_tpu_torch import megakernel as MK
+    from glome_tpu_torch import spd
+    from glome_tpu_torch.scenes.spd_balls import nff
+    s = spd.parse(nff(2) + OCCLUDER)
+    compiled = T.compile_scene(s.geom, s.lights)
+    old, MK.BLOCK_MIN = MK.BLOCK_MIN, 64
+    try:
+        assert MK.get_plan(compiled).blocks
+    finally:
+        MK.BLOCK_MIN = old
+    return compiled, T.to_torch(compiled.arrays(), "cpu"), s.cam
+
+
+@pytest.fixture
+def k2_seeds(monkeypatch):
+    """The live lanes (seed above 0) of every K2 call, in call order, as
+    the plain K2 (the CPU's) is handed them."""
+    from glome_tpu_torch import block_kernel as BK
+    seen, plain = [], BK.block_select_plain
+
+    def tap(plan, tab, cf, rays, seed, shadow):
+        seen.append(int((seed > 0).sum()))
+        return plain(plan, tab, cf, rays, seed, shadow)
+    tap.calls = 0           # the plain version counts its calls by name
+    monkeypatch.setattr(BK, "block_select_plain", tap)
+    return seen
+
+
+@pytest.mark.parametrize("frame", [COMPILED, EAGER])
+def test_k2_launches_are_recorded_beside_k1s(block_scene, cfg, k2_seeds,
+                                             frame):
+    compiled, arrays, cam = block_scene
+    view = T.Renderer(T.WavefrontTracer(compiled, cfg, frame=frame), cam,
+                      cfg)
+    before = _last()
+    view.render(arrays)
+    f, = _new(before)
+    k1 = [g for g in f.launches if g[0] == "k1"]
+    k2 = [g for g in f.launches if g[0] == "k2"]
+    # one K2 launch per batch, on the batch's lanes, its live lanes those
+    # its seed keeps alive
+    assert len(k2) == len(k1) == 2 * cfg.maxdepth
+    assert [g[1:4] for g in k2] == [g[1:4] for g in k1]
+    assert [g[4] for g in k2] == k2_seeds
+    assert f.counts["k2.lanes"] == f.counts["k1.lanes"]
+    assert f.counts["k2.live_lanes"] == sum(k2_seeds)
+    assert f.counts["k2.lanes"] >= f.counts["k2.live_lanes"] > 0
+    # the occluder, in K1, leaves K2 fewer live shadow lanes than K1 has
+    assert k2[1][2] == "shadow" and 0 < k2[1][4] < k1[1][4]
+    if frame == COMPILED:
+        assert f.counts["k2.lanes"] > f.counts["k2.live_lanes"]
+
+
+def test_compiled_k2_live_lanes_are_the_eager_frames(block_scene, cfg):
+    compiled, arrays, cam = block_scene
+    tracer = T.WavefrontTracer(compiled, cfg)
+    ys, xs = np.mgrid[0:cfg.yres, 0:cfg.xres]
+    o, d = T.Renderer(tracer, cam, cfg).rays_for_pixels(
+        xs.reshape(-1).astype(np.float32) + 0.5,
+        ys.reshape(-1).astype(np.float32) + 0.5, "cpu")
+    before = _last()
+    tracer.trace(arrays, o, d, frame=COMPILED)
+    tracer.trace(arrays, o, d, frame=EAGER)
+    got, want = _new(before)
+    got = [g for g in got.launches if g[0] == "k2"]
+    want = [w for w in want.launches if w[0] == "k2"]
+    assert len(got) == len(want) == 2 * cfg.maxdepth
+    for g, w in zip(got, want):
+        assert g[1:3] == w[1:3] and g[4] == w[4] <= w[3]
+
+
+def test_a_scene_without_block_groups_records_no_k2(scene, cfg):
+    compiled, arrays, cam = scene
+    before = _last()
+    T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg).render(arrays)
+    f, = _new(before)
+    assert all(g[0] == "k1" for g in f.launches)
+    assert "k2.lanes" not in f.counts
+
+
 # --- the profiler's clock -------------------------------------------------------
 
 def _profiled_frame(view, arrays):
@@ -314,3 +404,29 @@ def test_capture_and_replay_frames_record_the_same_launches(scene,
     assert [g[4] for g in rep.launches] == [w[3] for w in eager.launches]
     assert cap.counts["graphs.captures"] == capture_frame["captures"]
     assert rep.counts["graphs.host_reads"] == cfg.maxdepth - 1
+
+
+@pytest.mark.cuda
+def test_k2_capture_and_replay_frames_record_the_same_launches(block_scene):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    compiled, _cpu, cam = block_scene
+    arrays = T.to_torch(compiled.arrays(), torch.device("cuda", 0))
+    cfg = T.RenderConfig(xres=64, yres=48)
+    tracer = T.WavefrontTracer(compiled, cfg)
+    assert tracer.frame == COMPILED
+    view = T.Renderer(tracer, cam, cfg)
+    before = _last()
+    view.render(arrays, 0.5)
+    view.render(arrays, 0.5)
+    T.Renderer(T.WavefrontTracer(compiled, cfg, frame=EAGER), cam,
+               cfg).render(arrays, 0.5)
+    torch.cuda.synchronize()
+    cap, rep, eager = _new(before)
+    k2 = [[g for g in f.launches if g[0] == "k2"] for f in (cap, rep, eager)]
+    assert len(k2[0]) == 2 * cfg.maxdepth
+    assert k2[0] == k2[1]
+    # K2's live lanes, the occluder's blocked shadow rays left out, as the
+    # eager frame's
+    assert [g[4] for g in k2[1]] == [w[4] for w in k2[2]]
+    assert k2[2][1][4] < k2[2][1][3]
