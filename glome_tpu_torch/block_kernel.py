@@ -18,7 +18,8 @@ megakernel.finalize re-evaluates the winner differentiably.
     leaf) is built over the block AABBs and laid out as child-pair
     records (accel.node_records).
   - pack_blocks / pack_cons: the (n_blocks, BP, F) row table and the
-    flat constraint-member rows, from the scene tensors.
+    flat constraint-member rows, from the scene tensors (block_tables:
+    both of a group).
   - block_select: the hand-written CUDA kernel (csrc/block_select.cu) on
     CUDA tensors, block_select_plain on CPU tensors.
   - block_pass: one group's pass, group-local row*2 + slot.
@@ -341,19 +342,28 @@ def block_select_plain(plan: BlockPlan, tab, cf, rays, seed,
 block_select_plain.calls = 0
 
 
-def block_pass(sc, garrs, gi, rays, seed, shadow: bool,
-               select=block_select):
-    """(t, local2) of group gi of a packed scene: local2 = group-local
-    prim * 2 + slot, -1 = nothing beat `seed`.  `garrs` are the scene's
-    device arrays (as from to_torch); `select` is block_select or
-    block_select_plain."""
+def block_tables(sc, garrs, gi, device):
+    """(tab, cf) of group gi of a packed scene: pack_blocks' row table
+    and pack_cons' constraint rows (`garrs` the scene's device arrays)."""
     from .compile import group_device_params
     g = sc.groups[gi]
     plan = get_block_plan(g, sc)
     ga = {k: v.detach() for k, v in group_device_params(g, garrs[gi]).items()
           if k != "m_fwd"}
-    tab = pack_blocks(plan, ga)
-    cf = pack_cons(plan, sc, garrs, rays.device)
+    return pack_blocks(plan, ga), pack_cons(plan, sc, garrs, device)
+
+
+def block_pass(sc, garrs, gi, rays, seed, shadow: bool,
+               select=block_select, tables=None):
+    """(t, local2) of group gi of a packed scene: local2 = group-local
+    prim * 2 + slot, -1 = nothing beat `seed`.  `garrs` are the scene's
+    device arrays (as from to_torch); `select` is block_select or
+    block_select_plain; `tables` the group's block_tables, or None to
+    pack them here."""
+    g = sc.groups[gi]
+    plan = get_block_plan(g, sc)
+    tab, cf = (block_tables(sc, garrs, gi, rays.device) if tables is None
+               else tables)
     t, sel2 = select(plan, tab, cf, rays, seed.detach().contiguous(), shadow)
     # table rows are group-local prim order (padded rows duplicate the
     # last prim): arithmetic map, no gather

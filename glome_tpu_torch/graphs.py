@@ -41,10 +41,10 @@ the level's child counts, which sizes the next level.
     the next segment of the capture frame is captured reading those, and
     a capture frame launches each kernel once, as a replay frame does.
   - Counters.  Inside a capture the kernel wrappers run, and add to
-    their .launches (the plain versions to their .calls), without
-    running anything.  The capture's counter deltas are taken back and
-    kept with the segment, and every replay adds them: the counters
-    count what ran.
+    their .launches (the plain versions and megakernel.pack_tables to
+    their .calls), without running anything.  The capture's counter
+    deltas are taken back and kept with the segment, and every replay
+    adds them: the counters count what ran.
   - Memory.  The segments captured by one frame share one memory pool:
     they are captured in the order every frame replays them (down the
     levels, then up), so a segment's scratch can only reuse memory of a
@@ -129,7 +129,7 @@ def check_no_grad(*trees):
             "torch.no_grad())")
 
 
-def counters():
+def kernel_counters():
     """(function, attribute) of every counter of the select kernels:
     K1-K5's .launches and their plain versions' .calls."""
     from . import block_kernel as BK
@@ -142,6 +142,14 @@ def counters():
             MK.mega_select_plain, BK.block_select_plain,
             MSH.mesh_block_select_plain, GK.dense_select_plain,
             GK.bvh_select_plain))
+
+
+def counters():
+    """(function, attribute) of every counter a segment carries: the
+    kernel_counters() and the builds of the select tables,
+    megakernel.pack_tables' .calls."""
+    from . import megakernel as MK
+    return kernel_counters() + ((MK.pack_tables, "calls"),)
 
 
 class Segment:
@@ -277,7 +285,8 @@ class FrameRun:
     and adds them to the cache's totals."""
 
     def __init__(self, cache: GraphCache, device, arrays):
-        self.cache = cache if torch.device(device).type == "cuda" else None
+        self.device = torch.device(device)
+        self.cache = cache if self.device.type == "cuda" else None
         self.keep = tensors(arrays) if self.cache is not None else []
         self.scene = scene_key(arrays) if self.cache is not None else ()
         if self.cache is not None:
@@ -293,12 +302,13 @@ class FrameRun:
     def run(self, key: tuple, fn: Callable, inputs: Sequence[torch.Tensor],
             placed: Sequence[torch.Tensor] = ()):
         """Segment `key` on `inputs` (copied into static buffers) and
-        `placed` (read where they lie: their identity joins the key)."""
+        `placed` (read where they lie: their identity joins the key).  A
+        segment may have neither: it then reads the scene tensors only."""
         if self.cache is None:
             return fn(*inputs, *placed)
-        device = (list(inputs) + list(placed))[0].device
         return self.cache.run(
-            self, key + (str(device), scene_key(list(placed)), self.scene),
+            self, key + (str(self.device), scene_key(list(placed)),
+                         self.scene),
             fn, inputs, placed)
 
     def stats(self) -> Dict[str, int]:

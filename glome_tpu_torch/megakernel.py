@@ -13,6 +13,8 @@ any-hit variant.  This module keeps that design and its host side:
     regions as ONE flat int32 descriptor table, which a single generic
     CUDA kernel reads at run time (no per-scene code generation);
   - pack_tables: the PF/BB parameter tables from the scene tensors;
+    select_tables: K1's, K2's and K3's tables at once, which the
+    compiled frame builds once a trace call and every batch reads;
   - mega_select: the hand-written CUDA kernel (csrc/mega_select.cu) on
     CUDA tensors, its plain torch version mega_select_plain on CPU
     tensors;
@@ -1020,8 +1022,11 @@ def _param_rows(g, ga, dtype):
 def pack_tables(plan: MegaPlan, compiled, arrays) -> PlanTables:
     """PlanTables on the device of the scene tensors (`arrays` as from
     to_torch).  The kernel only selects (winners are re-evaluated
-    differentiably by finalize), so the tables are detached."""
+    differentiably by finalize), so the tables are detached.  Counts
+    its calls in pack_tables.calls: one a build of a batch's select
+    tables."""
     from .compile import group_device_params
+    pack_tables.calls += 1
     lights = arrays["lights"]["pos"]
     device = lights.device
     parts = []
@@ -1062,9 +1067,18 @@ def pack_tables(plan: MegaPlan, compiled, arrays) -> PlanTables:
                                    dim=-1))
     pbox = (torch.cat(pbox_rows).to(torch.float32) if pbox_rows
             else torch.zeros((1, 8), dtype=torch.float32, device=device))
-    pi, nf, ni, nodes, phases = _static_tables(plan, device)
-    return PlanTables(plan, pf.contiguous(), pi, nf, ni, nodes,
-                      bb.contiguous(), pbox.contiguous(), phases)
+    return plan_tables(plan, pf.contiguous(), bb.contiguous(),
+                       pbox.contiguous())
+
+
+pack_tables.calls = 0
+
+
+def plan_tables(plan: MegaPlan, pf, bb, pbox) -> PlanTables:
+    """PlanTables of packed pf, bb and pbox and the plan's static tables
+    on their device."""
+    pi, nf, ni, nodes, phases = _static_tables(plan, pf.device)
+    return PlanTables(plan, pf, pi, nf, ni, nodes, bb, pbox, phases)
 
 
 # --- the kernel K1 ----------------------------------------------------------
@@ -1691,19 +1705,45 @@ def _group_seed(rays, si, t, wid, shadow):
     return seed
 
 
+def select_tables(compiled, arrays):
+    """Every select table of a batch on the megakernel route, built
+    once: {"k1": (pf, bb, pbox) of pack_tables, "k2": {(si, gi): (tab,
+    cf)} of block_kernel.block_tables for each of plan.blocks, "k3":
+    {(si, gi): tri} of mesh_kernel.mesh_tables for each of
+    plan.external}.  They depend on the scene tensors only, so the
+    compiled frame builds them once a trace call and hands them to every
+    intersect and shadow batch of its levels (the `tables` argument of
+    the entry points below), where the other callers let each batch
+    build its own."""
+    from .block_kernel import block_tables
+    from .mesh_kernel import mesh_tables
+    plan = get_plan(compiled)
+    k1 = pack_tables(plan, compiled, arrays)
+    device = k1.pf.device
+    return {"k1": (k1.pf, k1.bb, k1.pbox),
+            "k2": {(si, gi): block_tables(compiled.scenes[si],
+                                          arrays["scenes"][si], gi, device)
+                   for si, gi in plan.blocks},
+            "k3": {(si, gi): mesh_tables(compiled.scenes[si],
+                                         arrays["scenes"][si], gi)
+                   for si, gi in plan.external}}
+
+
 def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select,
-                k2_live=None):
+                k2_live=None, tables=None):
     """Merge the block-dense groups (plan.blocks): each is one K2 launch
     seeded with the best t so far, so the chain keeps cross-group
     culling.  A list `k2_live` gets each launch's live lanes (seed above
-    0), a 0-d device tensor, in launch order."""
+    0), a 0-d device tensor, in launch order.  `tables`: select_tables'
+    "k2", or None to pack each group's tables here."""
     from .block_kernel import block_pass
     for si, gi in _big_groups(compiled, plan.blocks, shadow):
         seed = _group_seed(rays, si, t, wid, shadow)
         if k2_live is not None:
             k2_live.append((seed > 0).sum())
         t2, l2 = block_pass(compiled.scenes[si], arrays["scenes"][si], gi,
-                            rays, seed, shadow, select)
+                            rays, seed, shadow, select,
+                            None if tables is None else tables[(si, gi)])
         better = (t2 < seed) & (l2 >= 0)
         base = plan.prim_base[(si, gi)][0]
         wid = torch.where(better, base * 2 + torch.clamp(l2, min=0), wid)
@@ -1711,14 +1751,18 @@ def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select,
     return t, wid
 
 
-def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select):
+def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select,
+                  tables=None):
     """Merge the giant flat-triangle groups (plan.external): each is one
-    K3 launch seeded with the best t so far."""
+    K3 launch seeded with the best t so far.  `tables`: select_tables'
+    "k3", or None to pack each group's table here."""
     from .mesh_kernel import mesh_block_pass
     for si, gi in _big_groups(compiled, plan.external, shadow):
         seed = _group_seed(rays, si, t, wid, shadow)
         t2, l2 = mesh_block_pass(compiled.scenes[si], arrays["scenes"][si],
-                                 gi, rays, seed, shadow, select)
+                                 gi, rays, seed, shadow, select,
+                                 None if tables is None
+                                 else tables[(si, gi)])
         better = t2 < seed
         base = plan.prim_base[(si, gi)][0]
         # flat prims: the exit slot is always a miss, so slot bit = 0
@@ -1727,15 +1771,22 @@ def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select):
     return t, wid
 
 
-def _select_all(compiled, plan, arrays, rays, shadow, select, k2_live=None):
+def _select_all(compiled, plan, arrays, rays, shadow, select, k2_live=None,
+                tables=None):
     """K1, then the K2 groups, then the K3 groups, each launch seeded by
-    the best t so far: (t, wid, aux).  k2_live: as in _run_blocks."""
+    the best t so far: (t, wid, aux).  k2_live: as in _run_blocks.
+    `tables`: select_tables' tables, or None to pack them here."""
     mega, block, mesh = kernel_set(select)
-    tables = pack_tables(plan, compiled, arrays)
-    t, wid, aux = mega(tables, rays, shadow)
+    if tables is None:
+        k1, k2, k3 = pack_tables(plan, compiled, arrays), None, None
+    else:
+        k1, k2, k3 = (plan_tables(plan, *tables["k1"]), tables["k2"],
+                      tables["k3"])
+    t, wid, aux = mega(k1, rays, shadow)
     t, wid = _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, block,
-                         k2_live)
-    t, wid = _run_external(compiled, plan, arrays, rays, t, wid, shadow, mesh)
+                         k2_live, k2)
+    t, wid = _run_external(compiled, plan, arrays, rays, t, wid, shadow, mesh,
+                           k3)
     return t, wid, aux
 
 
@@ -1773,28 +1824,29 @@ def mega_shadow(compiled, arrays, o, d, sid=None, tmax=None,
 
 
 def mega_intersect_table(compiled, arrays, table, select: str = KERNELS,
-                         k2_live=None):
+                         k2_live=None, tables=None):
     """Table-native nearest hit: `table` is (8, N) float32 component
     planes [ox,oy,oz,dx,dy,dz,tmax,sid] (dead lanes tmax 0, sid -1).
     Returns the finalized Hit; o, d for finalize are the table's rows.
-    k2_live: as in _run_blocks."""
+    k2_live: as in _run_blocks; tables: select_tables' tables or None
+    (built here)."""
     plan = get_plan(compiled)
     rays = table.detach().clone()
     rays[6] = torch.clamp(rays[6], max=INFINITY)
     t, wid, aux = _select_all(compiled, plan, arrays, rays, False, select,
-                              k2_live)
+                              k2_live, tables)
     o = table[0:3].t()
     d = table[3:6].t()
     return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux)
 
 
 def mega_shadow_table(compiled, arrays, table, select: str = KERNELS,
-                      k2_live=None):
+                      k2_live=None, tables=None):
     """Table-native any-hit occlusion: `table` as in
     mega_intersect_table (row 6 = segment tmax; 0 = dead lane).
-    Returns (N,) bool blocked.  k2_live: as in _run_blocks."""
+    Returns (N,) bool blocked.  k2_live and tables as there."""
     plan = get_plan(compiled)
     _t, wid, _a = _select_all(compiled, plan, arrays,
                               table.detach().contiguous(), True, select,
-                              k2_live)
+                              k2_live, tables)
     return wid >= 0

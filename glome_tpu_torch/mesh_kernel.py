@@ -14,7 +14,8 @@ it near child first with K2's walk (csrc/bvh_walk.cuh), where glome_tpu
 walks a skip-link tree.
 
   - MeshBlockPlan / get_block_plan: the host plan of one group;
-  - pack_tri_blocks: the (n_blocks * BP, TRI_F) permuted triangle table;
+  - pack_tri_blocks: the (n_blocks * BP, TRI_F) permuted triangle table
+    (mesh_tables: a group's, from the scene tensors);
   - mesh_block_select: the hand-written CUDA kernel
     (csrc/mesh_block_select.cu) on CUDA tensors, mesh_block_select_plain
     on CPU tensors;
@@ -211,17 +212,26 @@ def mesh_block_select_plain(plan: MeshBlockPlan, tri, rays, seed,
 mesh_block_select_plain.calls = 0
 
 
-def mesh_block_pass(sc, garrs, gi, rays, seed, shadow: bool,
-                    select=mesh_block_select):
-    """(t, local) of group gi of a packed scene: the group-local
-    triangle, -1 = nothing beat `seed`.  `garrs` are the scene's device
-    arrays; `select` is mesh_block_select or mesh_block_select_plain."""
+def mesh_tables(sc, garrs, gi) -> torch.Tensor:
+    """pack_tri_blocks' table of group gi of a packed scene (`garrs` the
+    scene's device arrays)."""
     from .compile import group_device_params
     g = sc.groups[gi]
-    plan = get_block_plan(g)
     ga = {k: v.detach() for k, v in group_device_params(g, garrs[gi]).items()
           if k in ("p1", "p2", "p3")}
-    tri = pack_tri_blocks(plan, ga)
+    return pack_tri_blocks(get_block_plan(g), ga)
+
+
+def mesh_block_pass(sc, garrs, gi, rays, seed, shadow: bool,
+                    select=mesh_block_select, tri=None):
+    """(t, local) of group gi of a packed scene: the group-local
+    triangle, -1 = nothing beat `seed`.  `garrs` are the scene's device
+    arrays; `select` is mesh_block_select or mesh_block_select_plain;
+    `tri` the group's mesh_tables, or None to pack it here."""
+    g = sc.groups[gi]
+    plan = get_block_plan(g)
+    if tri is None:
+        tri = mesh_tables(sc, garrs, gi)
     t, sel = select(plan, tri, rays, seed.detach().contiguous(), shadow)
     s2l = plan.device_tables(rays.device)[2]
     return t, torch.where(sel >= 0, s2l[torch.clamp(sel, min=0).long()], -1)

@@ -221,7 +221,7 @@ def _counters():
     """(name, function, attribute) of the kernel wrappers' own counters:
     K1-K5 launches on the card, and their plain versions' calls."""
     return tuple((f"K{i % 5 + 1}{' plain' if a == 'calls' else ''}", f, a)
-                 for i, (f, a) in enumerate(G.counters()))
+                 for i, (f, a) in enumerate(G.kernel_counters()))
 
 
 @dataclasses.dataclass

@@ -33,7 +33,10 @@ accepted and ignored.  Two frames run the levels (`frame=`):
              lanes, the fused shadow batch L * B), and the level's one
              host read is its child counts, which size the next level.
              The next queue holds the live rays in the eager frame's
-             order, so both frames give the same bits.  On a CUDA device
+             order, so both frames give the same bits.  The select
+             tables (megakernel.select_tables) are built once a trace
+             call, where the eager frame builds them in every intersect
+             and shadow batch.  On a CUDA device the table build and
              each level's down and up passes are captured once as CUDA
              graphs and replayed (graphs.py); on the CPU the same levels
              run eagerly.
@@ -235,13 +238,15 @@ class WavefrontTracer(Tracer):
     # -- one DOWN level ------------------------------------------------------
 
     def _down_level(self, arrays, Q, lights, lpos, lcol, lrad, last,
-                    static: bool = False):
+                    static: bool = False, tables=None):
         """Intersect + preshade one level's queue; spawn the children
         into the next level's queue (none at the deepest level).
         Returns (child queue, stored shading inputs).  static=True runs
         the level at Q's static width (the compiled frame): the child
         queue is then (8, bucket(n_seg * width)) with its live rays
-        first, and stored["counts"] holds the (n_seg,) child counts."""
+        first, and stored["counts"] holds the (n_seg,) child counts.
+        `tables`: the trace call's megakernel.select_tables, which both
+        batches read, or None to let each build its own."""
         cc = self.compiled
         dt = Q.dtype
         dev = Q.device
@@ -250,7 +255,7 @@ class WavefrontTracer(Tracer):
         k2 = {"intersect": [], "shadow": []}
         hit = intersect_multi_table(cc, arrays, Q, select=self.select,
                                     route=self.route,
-                                    k2_live=k2["intersect"])
+                                    k2_live=k2["intersect"], tables=tables)
         self.last_batches += 1
 
         cdx, cdy, cdz = Q[3], Q[4], Q[5]
@@ -270,7 +275,7 @@ class WavefrontTracer(Tracer):
             blocked = shadow_query_table(cc, arrays, table,
                                          select=self.select,
                                          route=self.route,
-                                         k2_live=k2["shadow"])
+                                         k2_live=k2["shadow"], tables=tables)
             self.last_batches += 1
             off = 0
             for li, idx in sh_segments:
@@ -543,7 +548,10 @@ class WavefrontTracer(Tracer):
         telemetry span wavefront.trace; each intersect and shadow batch
         is a telemetry.launch of "k1" and one of "k2" per block group it
         runs (lanes launched, lanes live: for K2 those its seed keeps
-        alive, megakernel._run_blocks)."""
+        alive, megakernel._run_blocks); the counter
+        megakernel.table_packs is the call's builds of the select tables
+        (megakernel.pack_tables.calls: one a batch in the eager frame,
+        one a call in the compiled frame)."""
         with telemetry.span("wavefront.trace"):
             if recurs is None:
                 recurs = self.config.maxdepth
@@ -561,41 +569,50 @@ class WavefrontTracer(Tracer):
             if tmax is None:
                 tmax = torch.full((N,), INFINITY, dtype=dt, device=o.device)
             self.last_batches = 0
-            if frame == COMPILED:
-                return self._trace_compiled(arrays, o, d, tmax, R, scene_id,
-                                            lights)
-            lpos, lcol, lrad = _light_arrays(self.compiled, arrays, lights)
-            Q = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
-                             d[:, 2], tmax,
-                             torch.full((N,), float(scene_id), dtype=dt,
-                                        device=o.device)])
-            stored_levels = []
-            for level in range(R):
-                lanes = Q.shape[1]
-                Q, stored = self._down_level(arrays, Q, lights, lpos, lcol,
-                                             lrad, last=(level == R - 1))
-                stored_levels.append(stored)
-                if self.route == MEGA:
-                    # exact queues: every lane launched holds a live ray
-                    # (K2's are those of the group's scene, and in a shadow
-                    # batch those K1 left unblocked)
-                    k2 = {k: [telemetry.pending(n) for n in v]
-                          for k, v in stored["k2_live"].items()}
-                    self._record_launches(level, "intersect", lanes, lanes,
-                                          k2["intersect"])
-                    sh = stored["shadow_lanes"]
-                    if sh is not None:
-                        self._record_launches(level, "shadow", sh, sh,
-                                              k2["shadow"])
+            packs = MK.pack_tables.calls
+            res = (self._trace_compiled if frame == COMPILED
+                   else self._trace_eager)(arrays, o, d, tmax, R, scene_id,
+                                           lights)
+            telemetry.count("megakernel.table_packs",
+                            MK.pack_tables.calls - packs)
+            return res
 
-            color = C.ca_transparent((0,), dt, o.device)
-            t = torch.zeros((0,), dtype=dt, device=o.device)
-            for level in reversed(range(R)):
-                color, t = self._up_level(stored_levels[level], color, t,
-                                          lights)
-            s0 = stored_levels[0]
-            return TraceResult(color, s0["t"], s0["tag"], s0["serial"],
-                               self._overflow(R, lights, o.device))
+    def _trace_eager(self, arrays, o, d, tmax, R, scene_id, lights):
+        """The eager frame: exact-size queues, op by op."""
+        N = o.shape[0]
+        dt = o.dtype
+        lpos, lcol, lrad = _light_arrays(self.compiled, arrays, lights)
+        Q = torch.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1],
+                         d[:, 2], tmax,
+                         torch.full((N,), float(scene_id), dtype=dt,
+                                    device=o.device)])
+        stored_levels = []
+        for level in range(R):
+            lanes = Q.shape[1]
+            Q, stored = self._down_level(arrays, Q, lights, lpos, lcol,
+                                         lrad, last=(level == R - 1))
+            stored_levels.append(stored)
+            if self.route == MEGA:
+                # exact queues: every lane launched holds a live ray
+                # (K2's are those of the group's scene, and in a shadow
+                # batch those K1 left unblocked)
+                k2 = {k: [telemetry.pending(n) for n in v]
+                      for k, v in stored["k2_live"].items()}
+                self._record_launches(level, "intersect", lanes, lanes,
+                                      k2["intersect"])
+                sh = stored["shadow_lanes"]
+                if sh is not None:
+                    self._record_launches(level, "shadow", sh, sh,
+                                          k2["shadow"])
+
+        color = C.ca_transparent((0,), dt, o.device)
+        t = torch.zeros((0,), dtype=dt, device=o.device)
+        for level in reversed(range(R)):
+            color, t = self._up_level(stored_levels[level], color, t,
+                                      lights)
+        s0 = stored_levels[0]
+        return TraceResult(color, s0["t"], s0["tag"], s0["serial"],
+                           self._overflow(R, lights, o.device))
 
     def _overflow(self, R, lights, device):
         n_seg = len(self._segments())
@@ -618,6 +635,12 @@ class WavefrontTracer(Tracer):
         widths = []
         with torch.no_grad():
             B = whole_rows(N)
+            # the select tables of every batch of the call, built once;
+            # the down segments read them where they lie
+            tables = run.run(("tables", B),
+                             lambda: MK.select_tables(self.compiled, arrays),
+                             ())
+            flat_tables = tuple(G.tensors(tables))
             Q = dead_table(B, dt, dev)
             Q[0:3, :N] = o.t()
             Q[3:6, :N] = d.t()
@@ -630,16 +653,17 @@ class WavefrontTracer(Tracer):
                 last = level == R - 1
                 widths.append(B)
 
-                def down(q, last=last):
+                def down(q, *tabs, last=last):
                     lpos, lcol, lrad = _light_arrays(self.compiled, arrays,
                                                      lights)
                     return self._down_level(arrays, q, lights, lpos, lcol,
-                                            lrad, last, static=True)
+                                            lrad, last, static=True,
+                                            tables=G.unflatten(tables, tabs))
                 # level 0's rays are the caller's: copied; a deeper level's
                 # are the level above's static queue: read in place
                 Qnext, stored = run.run(("down", level, B, last), down,
-                                        *(((Q,), ()) if level == 0
-                                          else ((), (Q,))))
+                                        *(((Q,), flat_tables) if level == 0
+                                          else ((), (Q,) + flat_tables)))
                 levels.append(stored)
                 nc = stored["counts"].numel()
                 ni, ns = stored["k2_calls"]

@@ -910,6 +910,12 @@ def _sphere_centres(arrays):
     return next(ga for ga in arrays["scenes"][0] if "center" in ga)
 
 
+def _segments(tracer):
+    """The segments of a trace: the select tables' build, and each
+    level's down and up passes."""
+    return 1 + 2 * tracer.config.maxdepth
+
+
 def test_compiled_frame_equals_eager_frame(dev):
     """The TestScene frame at 180x120 depth 3: the capture frame and the
     replays equal the eager frame on every lane; a replay captures
@@ -919,7 +925,7 @@ def test_compiled_frame_equals_eager_frame(dev):
     tracer, arrays, o, d = _compiled_case(dev)
     n0, p0 = MK.mega_select.launches, MK.mega_select_plain.calls
     first = tracer.trace(arrays, o, d, frame=COMPILED)
-    assert tracer.last_frame["captures"] == 2 * tracer.config.maxdepth
+    assert tracer.last_frame["captures"] == _segments(tracer)
     # the capture frame launches each kernel once (the warm-up), no plain
     assert MK.mega_select.launches - n0 == 2 * tracer.config.maxdepth
     assert MK.mega_select_plain.calls == p0
@@ -932,7 +938,7 @@ def test_compiled_frame_equals_eager_frame(dev):
     k_eager = MK.mega_select.launches - n0
     torch.cuda.synchronize()
     assert stats["captures"] == 0
-    assert stats["replays"] == 2 * tracer.config.maxdepth
+    assert stats["replays"] == _segments(tracer)
     assert stats["host_reads"] == tracer.config.maxdepth - 1
     assert k_replay == k_eager == 2 * tracer.config.maxdepth
     assert _frames_equal(first, eager) and _frames_equal(replay, eager)
@@ -966,8 +972,8 @@ def test_compiled_frame_captures_a_replaced_tensor(dev):
     with pytest.warns(RuntimeWarning, match="segments dropped"):
         got = tracer.trace(arrays, o, d)
     assert tracer.graphs.scene_changes == 1
-    assert len(tracer.graphs) == 2 * tracer.config.maxdepth
-    assert tracer.last_frame["captures"] == 2 * tracer.config.maxdepth
+    assert len(tracer.graphs) == _segments(tracer)
+    assert tracer.last_frame["captures"] == _segments(tracer)
     assert tracer.last_frame["replays"] == 0
     want = tracer.trace(arrays, o, d, frame=EAGER)
     assert _frames_equal(got, want)

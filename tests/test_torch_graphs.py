@@ -24,10 +24,15 @@ tensors, and which graphs.py captures as CUDA graphs on a card.
   each tracer runs by default and per call.
 - The capture key: unchanged by an in-place edit of a scene tensor,
   changed when the tensor is replaced; an in-place edit shows in the
-  next compiled frame exactly as in the eager frame; a new scene key
-  drops the old scene's segments, with a warning; the counters a
-  segment carries are the kernels' launches and the plain versions'
-  calls.
+  next compiled frame exactly as in the eager frame (a sphere's centre;
+  boxes and cones, whose rows K1's group bounds and padded prim boxes
+  read); a new scene key drops the old scene's segments, with a
+  warning; the counters a segment carries are the kernels' launches,
+  the plain versions' calls and the select tables' builds.
+- The select tables (megakernel.select_tables): a compiled trace builds
+  them once (the frame record's megakernel.table_packs 1; K2's and K3's
+  tables once on the mesh), the eager frame once a batch, and both give
+  the same bits.
 
 The card-only cases (replay == eager, an edit read by the next replay,
 a replaced tensor captured anew) are in test_torch_cuda.py.
@@ -45,8 +50,11 @@ import glome_tpu as G
 import glome_tpu_torch as T
 from glome_tpu import megakernel as JMK
 from glome_tpu.scenes.meshscene import mesh_scene as j_mesh_scene
+from glome_tpu_torch import block_kernel as BK
 from glome_tpu_torch import graphs
 from glome_tpu_torch import megakernel as MK
+from glome_tpu_torch import mesh_kernel as MSH
+from glome_tpu_torch import telemetry as TM
 from glome_tpu_torch.graphs import COMPILED, EAGER
 from glome_tpu_torch.intersect import GROUPS, MEGA, intersect_multi_table
 from glome_tpu_torch.io import quantize, read_png
@@ -116,6 +124,15 @@ def _both_frames(tracer, arrays, o, d):
     return got, want, stats
 
 
+def _packs(tracer, arrays, o, d, frame):
+    """(the trace, megakernel.table_packs of its frame record)."""
+    kept = TM.frames()
+    before = kept[-1].id if kept else -1
+    res = tracer.trace(arrays, o, d, frame=frame)
+    rec, = [f for f in TM.frames() if f.id > before]
+    return res, rec.counts["megakernel.table_packs"]
+
+
 # --- the bucket ladder ------------------------------------------------------
 
 @pytest.mark.parametrize("n", [0, 1, 127, 128, 129, 300, 511, 512, 513, 640,
@@ -174,18 +191,25 @@ def test_phase_kinds_levels_equal_the_eager_frame():
     assert bool((got.t < T.INFINITY).any())
 
 
-def _mesh_pair(monkeypatch, route):
-    for mod in (JMK, MK):
-        for k, v in MESH_ROUTES[route].items():
-            monkeypatch.setattr(mod, k, v)
-    sj, lj, _ = j_mesh_scene(1500, cast_shadows=True)
+def _mesh_case(monkeypatch, route):
+    """The 1,500-triangle mesh, self-shadowing, routed to K2 or K3:
+    (compiled, its 64x36 depth-1 tracer, o, d)."""
+    for k, v in MESH_ROUTES[route].items():
+        monkeypatch.setattr(MK, k, v)
     st, lt, camt = t_mesh_scene(1500, cast_shadows=True)
-    cj, ct = G.compile_scene(sj, lj), T.compile_scene(st, lt)
+    ct = T.compile_scene(st, lt)
     assert getattr(MK.get_plan(ct), route) == [(0, 1)]
     cfg = T.RenderConfig(xres=64, yres=36, maxdepth=1)
     tracer = T.WavefrontTracer(ct, cfg)
     o, d = _pixel_rays(tracer, camt, cfg)
-    return cj, ct, tracer, o, d
+    return ct, tracer, o, d
+
+
+def _mesh_pair(monkeypatch, route):
+    for k, v in MESH_ROUTES[route].items():
+        monkeypatch.setattr(JMK, k, v)
+    sj, lj, _ = j_mesh_scene(1500, cast_shadows=True)
+    return (G.compile_scene(sj, lj),) + _mesh_case(monkeypatch, route)
 
 
 @pytest.mark.parametrize("route", sorted(MESH_ROUTES))
@@ -220,6 +244,38 @@ def test_testscene_compiled_frame_within_golden_canaries(testscene):
           f"{int((diff > 64).sum())}/{diff.size} pixels > 64")
     assert diff.mean() <= 3.0
     assert (diff > 64).sum() <= 0.006 * diff.size
+
+
+# --- the select tables, once a trace -----------------------------------------
+
+def test_a_compiled_trace_builds_its_select_tables_once(testscene):
+    _compiled, cfg, tracer, arrays, o, d = testscene
+    o, d = o[:640], d[:640]
+    got, n_compiled = _packs(tracer, arrays, o, d, COMPILED)
+    want, n_eager = _packs(tracer, arrays, o, d, EAGER)
+    _assert_bit_equal(got, want)
+    assert n_compiled == 1
+    # the eager frame: one a batch, an intersect and a shadow batch a level
+    assert n_eager == tracer.last_batches == 2 * cfg.maxdepth
+
+
+@pytest.mark.parametrize("route", sorted(MESH_ROUTES))
+def test_k2_and_k3_tables_are_built_once_a_compiled_trace(monkeypatch,
+                                                          route):
+    compiled, tracer, o, d = _mesh_case(monkeypatch, route)
+    arrays = T.to_torch(compiled.arrays(), "cpu")
+    mod, name = ((BK, "pack_blocks") if route == "blocks"
+                 else (MSH, "pack_tri_blocks"))
+    packed = []
+    pack = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a: packed.append(1) or pack(*a))
+    got, n_compiled = _packs(tracer, arrays, o, d, COMPILED)
+    k_compiled = len(packed)
+    want, n_eager = _packs(tracer, arrays, o, d, EAGER)
+    _assert_bit_equal(got, want)
+    # depth 1: an intersect and a shadow batch, the mesh in both
+    assert (n_compiled, k_compiled) == (1, 1)
+    assert (n_eager, len(packed) - k_compiled) == (2, 2)
 
 
 # --- the static shadow batch and child queue ----------------------------------
@@ -363,6 +419,40 @@ def test_inplace_edit_shows_in_the_next_compiled_frame(testscene):
     assert not torch.equal(got.color, before.color)
 
 
+def test_inplace_edit_of_boxes_and_cones_shows_in_the_next_compiled_frame(
+        testscene):
+    # group 1's boxes are a dense phase's rows and its group bounds (the
+    # plan's bb_spec); group 5's cones are a BVH phase's rows and its
+    # padded prim boxes (pbox_spec), read through their transforms
+    compiled, _cfg, tracer, _arrays, o, d = testscene
+    plan = MK.get_plan(compiled)
+    assert (0, 1) in plan.bb_spec
+    assert [(si, gi) for _i, si, gi, _p in plan.pbox_spec] == [(0, 5)]
+    arrays = T.to_torch(compiled.arrays(), "cpu")
+    # a ray in 8 at depth 1: every batch reads the tables all the same
+    o, d = o[::8], d[::8]
+    before = tracer.trace(arrays, o, d, recurs=1)
+    step = torch.tensor([0.3, 0.1, 0.0])
+    boxes, cones = arrays["scenes"][0][1], arrays["scenes"][0][5]
+    boxes["bmin"].add_(step)
+    boxes["bmax"].add_(step)
+    # the cones moved by `step`: the forward transform's translation
+    # column, and the inverse's by the inverse's linear part
+    cones["m_fwd"][:, :, 3].add_(step)
+    cones["m_inv"][:, :, 3].sub_(cones["m_inv"][:, :, :3] @ step)
+    got = tracer.trace(arrays, o, d, recurs=1)
+    _assert_bit_equal(got, tracer.trace(arrays, o, d, recurs=1,
+                                        frame=EAGER))
+    # both kinds moved: lanes that hit a box, and lanes that hit a cone,
+    # meet it elsewhere now
+    for gi in (1, 5):
+        base = plan.prim_base[(0, gi)][0]
+        serials = torch.as_tensor(plan.serial_all[
+            base:base + compiled.scenes[0].groups[gi].size])
+        was = torch.isin(before.prim_serial, serials)
+        assert bool((got.t[was] != before.t[was]).any()), gi
+
+
 def test_a_new_scene_drops_the_old_scenes_segments():
     cache = graphs.GraphCache()
     cache.use_scene(("a",))
@@ -377,8 +467,12 @@ def test_a_new_scene_drops_the_old_scenes_segments():
 
 def test_segments_carry_launch_and_plain_call_counters():
     cs = graphs.counters()
-    assert [a for _f, a in cs] == ["launches"] * 5 + ["calls"] * 5
+    assert [a for _f, a in cs] == ["launches"] * 5 + ["calls"] * 6
     assert cs[0][0] is MK.mega_select and cs[5][0] is MK.mega_select_plain
+    # the builds of the select tables, which a replay counts too, after
+    # the kernels' own counters
+    assert cs[:10] == graphs.kernel_counters()
+    assert cs[10][0] is MK.pack_tables
     assert all(isinstance(getattr(f, a), int) for f, a in cs)
 
 

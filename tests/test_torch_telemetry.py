@@ -12,7 +12,10 @@ range opened while no profiler collects; the ring's bounds.
 
 On the card (`cuda`): a capture frame and a replay frame record equal
 per-launch counts, K2's among them on a scene with a block group, and no
-span, count or launch is recorded while a stream captures.
+span, count or launch is recorded while a stream captures; a replayed
+still and AA frame build the select tables once a trace call
+(megakernel.table_packs), equal the eager frame, and a replay after an
+in-place edit of boxes and cones reads the edit.
 
     python -m pytest tests/test_torch_telemetry.py -q
     python -m pytest --noconftest -m cuda tests/test_torch_telemetry.py -q
@@ -430,3 +433,57 @@ def test_k2_capture_and_replay_frames_record_the_same_launches(block_scene):
     # eager frame's
     assert [g[4] for g in k2[1]] == [w[4] for w in k2[2]]
     assert k2[2][1][4] < k2[2][1][3]
+
+
+@pytest.mark.cuda
+def test_replayed_frames_build_the_select_tables_once_a_trace(scene):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    compiled, _cpu, cam = scene
+    arrays = T.to_torch(compiled.arrays(), torch.device("cuda", 0))
+    cfg = T.RenderConfig.tuned()
+    tracer = T.WavefrontTracer(compiled, cfg)
+    view = T.Renderer(tracer, cam, cfg)
+    eager = T.Renderer(T.WavefrontTracer(compiled, cfg, frame=EAGER), cam,
+                       cfg)
+    aa = T.AARenderer(tracer, cam, cfg)
+    eager_aa = T.AARenderer(T.WavefrontTracer(compiled, cfg, frame=EAGER),
+                            cam, cfg)
+
+    def frames(*runs):
+        before = _last()
+        out = [run() for run in runs]
+        torch.cuda.synchronize()
+        return out, [f.counts["megakernel.table_packs"] for f in _new(before)]
+
+    (cap, rep, want, a_cap, a_rep, a_want), packs = frames(
+        lambda: view.render(arrays, 0.5), lambda: view.render(arrays, 0.5),
+        lambda: eager.render(arrays, 0.5), lambda: aa.render(arrays),
+        lambda: aa.render(arrays), lambda: eager_aa.render(arrays))
+    assert tracer.last_frame["captures"] == 0
+    # one build a trace call, replays included; the eager frame one a
+    # batch; the AA frame traces five times
+    n = 2 * cfg.maxdepth
+    assert packs == [1, 1, n, 5, 5, 5 * n]
+    for got, ref in ((cap, want), (rep, want), (a_cap, a_want),
+                     (a_rep, a_want)):
+        assert all(torch.equal(x, y) for x, y in zip(got, ref))
+    # boxes (a dense phase's rows and group bounds) and cones (a BVH
+    # phase's rows and padded prim boxes) moved in place: the next
+    # replay of the tables' segment reads them, as the eager frame does
+    # (the deeper levels may capture anew: their widths follow the rays)
+    tables = [g for k, g in tracer.graphs.segments.items()
+              if k[:2] == ("tables", whole_rows(cfg.xres * cfg.yres))]
+    step = torch.tensor([0.3, 0.1, 0.0], device=arrays["lights"]["pos"].device)
+    boxes, cones = arrays["scenes"][0][1], arrays["scenes"][0][5]
+    boxes["bmin"].add_(step)
+    boxes["bmax"].add_(step)
+    cones["m_fwd"][:, :, 3].add_(step)
+    cones["m_inv"][:, :, 3].sub_(cones["m_inv"][:, :, :3] @ step)
+    (moved, want), packs = frames(lambda: view.render(arrays, 0.5),
+                                  lambda: eager.render(arrays, 0.5))
+    assert len(tables) == 1 and packs[0] == 1
+    assert [g for k, g in tracer.graphs.segments.items()
+            if k[:2] == ("tables", whole_rows(cfg.xres * cfg.yres))] == tables
+    assert all(torch.equal(x, y) for x, y in zip(moved, want))
+    assert not torch.equal(moved[0], rep[0])
