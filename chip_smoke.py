@@ -192,26 +192,24 @@ micro_kwide), and checks them in phases:
      of a 65,536-lane subset of each, winners included; K5's ms per
      launch on the L0 batch and its bound from the tally;
  30. the frame-profiling tool (glome_tpu_torch/tools/profile_frame.py,
-     python -m glome_tpu_torch.tools.profile_frame) on six workloads:
-     the TestScene 720x480 depth-3 frame on each route, the mesh100k
-     1080p self-shadowing frame on each route, the 720x480 AA frame and
-     one config 5 step at 180x120.  Each is timed unprofiled (CUDA
-     events, mean of 3 after a warm-up), then run once with every stage
-     wrapped and profiled, and its stage table printed.  Gates: every
-     stage the path reaches fired; the result equals the warm-up's
-     without the wrappers (frames bit for bit; the config 5 step's loss
-     equal and its updated row within 1e-6 relative); the K1-K5
-     launches summed over the stages equal the wrappers' counters and
-     the path's counts (6 K1 per TestScene frame; 7 K4 + 2 K5 per batch
-     of the group-route frame; 2 K1 + 2 K2 per mesh frame on the
-     megakernel route; 1 K4 + 1 K5 per batch on the group route; 30 K1
-     per AA frame; 6 K1 per config 5 step), no plain call; the rows'
-     device ms, with "(outside any stage)", sum to the profiler's
-     device time within 1%.  Then the compiled frame (--frame compiled)
-     of the TestScene frame and the mesh100k self-shadowing frame (as
-     bench's frames: the trace of rays built once) and the AA frame: capture s, replay ms, one profiled replay frame's device
-     busy time and kernels' ms; gates: equal to the eager frame, no
-     capture in a replay frame, its launches as above, no plain call;
+     python -m glome_tpu_torch.tools.profile_frame) on nine workloads:
+     the eager frame of the TestScene 720x480 depth-3 frame on each
+     route, of the mesh100k 1080p self-shadowing frame on each route,
+     of the 720x480 AA frame and of one config 5 step at 180x120; and
+     the compiled frame of the TestScene frame and the mesh100k
+     self-shadowing frame (as bench's frames: the trace of rays built
+     once) and of the AA frame.  Each gets the tool's one report: ms by
+     CUDA events (mean of 3 after a warm-up), then one run profiled, its
+     device busy time, kernels' ms, launches and the program's spans
+     with the device busy ms while each is open.  Gates: the K1-K5
+     launches of the profiled run, by the wrappers' counters, are the
+     path's (6 K1 per TestScene frame; 7 K4 + 2 K5 per batch of the
+     group-route frame; 2 K1 + 2 K2 per mesh frame on the megakernel
+     route; 1 K4 + 1 K5 per batch on the group route; 30 K1 per AA
+     frame; 6 K1 per config 5 step), no plain call; the run opened
+     wavefront.trace and every span row's device ms, "(outside any
+     span)" too, is within the profiler's device busy time; a compiled
+     frame equals the eager frame and a replay frame captures nothing;
  31. the benchmark report, run right after phase 2 (the libraries
      built): python -m glome_tpu_torch.tools.bench as a subprocess, the
      port of the repository's bench.py (the TestScene headline, the
@@ -2468,8 +2466,6 @@ def main():
     # -- 30. the frame-profiling tool on every path ---------------------------
     def p_profile():
         mc, ma, _mp, mcam, _grp = mesh(100_000, True)
-        mk = ("mega_select", "block_select", "mesh_block_select",
-              "dense_select", "bvh_select")
         # (key, workload, K1-K5 launches the path makes per run, from the
         # tracer's batch count where that is per batch)
         work = (
@@ -2495,63 +2491,48 @@ def main():
              lambda b: {"K1": 30}),
             ("config5_step", PF.config5_workload(compiled, arrays, cam, 180,
                                                  120),
-             lambda b: {"K1": 6}))
+             lambda b: {"K1": 6}),
+            # the compiled frame's replay (--frame compiled)
+            ("compiled_testscene", PF.compiled_workload(
+                "TestScene 720x480 depth 3, bench's frame", compiled, arrays,
+                cam, cfg),
+             lambda b: {"K1": 2 * cfg.maxdepth}),
+            ("compiled_mesh100k_shadows", PF.compiled_workload(
+                "mesh100k 1920x1080 depth 1 self-shadowing, bench's frame",
+                mc, ma, mcam, mcfg),
+             lambda b: {"K1": 2, "K2": 2}),
+            ("compiled_aa_testscene", PF.compiled_workload(
+                "AA TestScene 720x480 depth 3", compiled, arrays, cam, cfg,
+                aa=True),
+             lambda b: {"K1": 30}))
         ok = True
         for key, w, want_fn in work:
             reset_counts()
             rep = PF.profile(w, dev, smi_line)
             read_counts(f"profile_{key}")
-            sp = rep.split
             want = want_fn(w.tracer.last_batches)
-            stage_sum = {f"K{i + 1}": sum(r.counts[f"K{i + 1}"]
-                                          for r in sp.stage_rows())
-                         for i in range(len(mk))}
-            prof_sum = {k: sum(r.profiled_launches().get(k, 0)
-                               for r in sp.rows) for k in stage_sum}
-            plain = sum(v for k, v in sp.counts.items() if "plain" in k)
-            launches_ok = all(stage_sum[k] == sp.counts[k] == want.get(k, 0)
-                              for k in stage_sum) and plain == 0
-            rows_dev = sum(r.device_ms for r in sp.rows)
-            part_ok = (sp.device_ms is not None and sp.device_ms > 0
-                       and abs(rows_dev - sp.device_ms)
-                       <= 0.01 * sp.device_ms)
-            print(f"  [{smi_line}] {w.name}: K1-K5 launches summed over the "
-                  f"stages {stage_sum}, the wrappers' counters "
-                  f"{ {k: sp.counts[k] for k in stage_sum} }, expected "
-                  f"{want} ({w.tracer.last_batches} batches in the last "
-                  f"trace), the profiler recorded {prof_sum}, plain calls "
-                  f"{plain} -> {'ok' if launches_ok else 'FAIL'}; rows' "
-                  f"device ms {rows_dev:.3f} of the profiler's "
-                  f"{sp.device_ms or 0.0:.3f} -> "
-                  f"{'ok' if part_ok else 'FAIL'}; stages fired: every "
-                  f"stage of the path {not rep.missing}; the same result "
-                  f"as without the wrappers: {rep.same}")
-            ok &= (launches_ok and part_ok and rep.same and not rep.missing)
-        # the compiled frame's replay (--frame compiled): one profiled
-        # replay frame's device busy time and kernels, its launches,
-        # captures and host reads
-        for (name, run, erun, tr), want in (
-                (PF.compiled_workload("TestScene 720x480 depth 3, bench's "
-                                      "frame", compiled, arrays, cam, cfg),
-                 {"K1": 2 * cfg.maxdepth}),
-                (PF.compiled_workload("mesh100k 1920x1080 depth 1 "
-                                      "self-shadowing, bench's frame", mc,
-                                      ma, mcam, mcfg),
-                 {"K1": 2, "K2": 2}),
-                (PF.compiled_workload("AA TestScene 720x480 depth 3",
-                                      compiled, arrays, cam, cfg, aa=True),
-                 {"K1": 30})):
-            rep = PF.profile_compiled(name, run, erun, tr, dev, smi_line)
-            good = (rep.same and rep.per_frame["captures"] == 0
-                    and all(rep.counts[f"K{i + 1}"] == want.get(
-                        f"K{i + 1}", 0) for i in range(len(mk)))
-                    and not any(v for k, v in rep.counts.items()
-                                if "plain" in k))
-            print(f"  {name}, compiled frame: launches as expected {want}, "
-                  f"no plain call, no capture, equal to the eager frame "
-                  f"-> {'ok' if good else 'FAIL'}")
+            kernels = {f"K{i}": rep.counts[f"K{i}"] for i in range(1, 6)}
+            plain = sum(v for k, v in rep.counts.items() if "plain" in k)
+            launches_ok = (kernels == {k: want.get(k, 0) for k in kernels}
+                           and plain == 0)
+            # every span's device time lies within the profiler's
+            busy = rep.busy_ms or 0.0
+            spans_ok = (busy > 0 and rep.row("wavefront.trace") is not None
+                        and all(r.busy_ms is not None
+                                and r.busy_ms <= busy + 1e-6
+                                for r in rep.spans))
+            good = launches_ok and spans_ok
+            text = (f"K1-K5 launches {kernels}, expected {want} "
+                    f"({w.tracer.last_batches} batches in the last trace), "
+                    f"plain calls {plain}; span rows' device ms within the "
+                    f"profiler's {busy:.3f}: {spans_ok}")
+            if w.eager is not None:
+                good &= rep.same and rep.per_frame["captures"] == 0
+                text += (f"; equal to the eager frame {rep.same}, captures "
+                         f"{rep.per_frame['captures']}")
+            print(f"  [{smi_line}] {w.name}: {text} -> "
+                  f"{'ok' if good else 'FAIL'}")
             ok &= good
-            del tr, run, erun
             torch.cuda.empty_cache()
         return ok
     phase("30 the frame-profiling tool (python -m "

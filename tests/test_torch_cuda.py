@@ -861,11 +861,12 @@ def test_sharded_render_and_step_on_card(dev, tmp_path):
 
 
 def test_profile_frame_k1_launches_by_stage(dev):
-    """One TestScene 720x480 frame split by the frame-profiling tool: the
-    K1 launches of its stages sum to 6 (one per intersect and shadow
-    batch of each of the three levels), all in the mega_select rows, and
-    equal the wrapper's own counter; the profiler's device ops are
-    partitioned by the rows; the frame equals the unwrapped one."""
+    """One TestScene 720x480 eager frame through the frame-profiling
+    tool's report: 6 K1 launches (one per intersect and shadow batch of
+    each of the three levels) by the wrapper's own counter, no plain
+    call; the frame's spans, whose self times with the outside row sum
+    to the profiled wall, each busy on the device within the profiler's
+    busy time, wavefront.trace busiest among the frame's children."""
     from glome_tpu_torch.scenes import test_scene
     from glome_tpu_torch.tools import profile_frame as PF
     solid, lights, cam = test_scene()
@@ -873,18 +874,17 @@ def test_profile_frame_k1_launches_by_stage(dev):
     arrays = T.to_torch(compiled.arrays(), dev)
     w = PF.frame_workload("frame", compiled, arrays, cam,
                           T.RenderConfig.tuned(), "mega")
-    ref = w.run()
     before = MK.mega_select.launches
-    sp = PF.split(w.run, dev)
-    assert PF._same_frames(sp.result, ref)[0]
-    k1 = {r.key: r.counts["K1"] for r in sp.stage_rows() if r.counts["K1"]}
-    assert sum(k1.values()) == sp.counts["K1"] \
-        == MK.mega_select.launches - before == 6
-    assert {key[0] for key in k1} == {"mega_select"}
-    assert {key[1] for key in k1} == {0, 1, 2}
-    assert sum(r.device_ms for r in sp.rows) == pytest.approx(
-        sp.device_ms, rel=1e-6)
-    assert sp.busy_ms > 0 and not [s for s in w.stages if s not in sp.fired]
+    rep = PF.profile(w, dev)
+    # the warm-up, 3 timed frames and the profiled one
+    assert MK.mega_select.launches - before == 5 * 6
+    assert rep.counts["K1"] == 6 and rep.counts["K1 plain"] == 0
+    assert rep.frame_ms > 0 and rep.busy_ms > 0 and rep.kernel_ms["K1"] > 0
+    assert sum(r.self_ns for r in rep.spans) == rep.wall_ns
+    assert all(0 <= r.busy_ms <= rep.busy_ms + 1e-6 for r in rep.spans)
+    children = ("render.ray_setup", "wavefront.trace", "render.scatter")
+    assert max(children, key=lambda n: rep.row(n).busy_ms) \
+        == "wavefront.trace"
 
 
 # --- the compiled frame (graphs.py) ------------------------------------------

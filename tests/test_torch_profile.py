@@ -1,18 +1,19 @@
 """The frame-profiling tool (glome_tpu_torch/tools/profile_frame.py) on
-the CPU: every stage a path reaches fires, the frame with the stages
-wrapped is bit-equal to the frame without them, every wrapped name
-holds its original object again afterwards, the wrappers' launch
-counters split by stage add up to the path's counts, the rows'
-exclusive host times add up to the root stage's inclusive time, a
-missing or unlisted stage target raises, and the command line runs on
-the CPU with "not measured" where a device number would stand.  The
-device attribution (which stage launched each device op) is held on
-synthetic profiler spans, since this machine has no card.
+the CPU: each path's report holds the launches the path makes by the
+kernel wrappers' counters, the spans that path opens, whose self times
+with the "(outside any span)" row sum to the profiled wall, and "not
+measured" in every device column; the compiled frame's report equals
+the eager frame and captures nothing here; the command line runs on the
+CPU and writes the profiler's trace file with --trace.  The device
+columns (busy time while a span is open, clipped to its intervals) are
+held on synthetic spans and device ops, since this machine has no card.
 
-TestScene at 48x32 on both routes, a 400-triangle mesh routed through
-K2 or K3 on the megakernel route, the AA frame and a config 5 step at
-48x32."""
+TestScene at 16x16 on both routes and through the recursive Tracer, a
+400-triangle mesh routed through K2 or K3 on the megakernel route, the
+AA frame, a config 5 step at 16x16, and SPD balls at size factor 2
+through K2 on the compiled frame."""
 
+import json
 import os
 import subprocess
 import sys
@@ -22,12 +23,29 @@ import torch
 
 import glome_tpu_torch as T
 from glome_tpu_torch import megakernel as MK
+from glome_tpu_torch import telemetry as TM
 from glome_tpu_torch.intersect import GROUPS, MEGA
 from glome_tpu_torch import scenes
 from glome_tpu_torch.tools import profile_frame as PF
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = ("K1", "K2", "K3", "K4", "K5")
+# the frames' size: every path's launches and spans at the least cost
+W, H = 16, 16
+FRAME_SPANS = ["render.frame", "render.ray_setup", "wavefront.trace",
+               "render.scatter", PF.OUTSIDE]
+
+
+@pytest.fixture(autouse=True)
+def _share_the_cores():
+    # test processes running side by side (pytest-xdist's workers) share
+    # the cores: oversubscribed, the frames' many small ops wait on one
+    # another's threads (20-40x slower here)
+    n = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -37,47 +55,31 @@ def testscene():
     return compiled, T.to_torch(compiled.arrays(), "cpu"), cam
 
 
-def _sites():
-    """{(stage, site): the object the site holds now}."""
-    out = {}
-    for st in PF.STAGES:
-        for site in st.sites:
-            h, a = PF._resolve(site)
-            out[st.name, site] = (h.__dict__[a] if isinstance(h, type)
-                                  else getattr(h, a))
-    return out
-
-
-def _check(w, sp, want):
-    """The checks every path shares; `want` = {counter: calls}."""
-    missing = [s for s in w.stages if s not in sp.fired]
-    assert not missing, missing
-    stages = sp.stage_rows()
-    for name in want.keys() | {f"{k} plain" for k in K}:
-        per_stage = sum(r.counts[name] for r in stages)
-        assert per_stage == sp.counts[name] == want.get(name, 0), name
-    assert sp.row(PF.OUTSIDE).counts == dict.fromkeys(sp.counts, 0)
-    assert all(sp.counts[k] == 0 for k in K)      # CPU: plain calls only
-    # exclusive host times partition the root stage's inclusive time
-    roots = [r for r in stages if r.stage == w.stages[0]]
-    assert len(roots) == 1 and roots[0].calls == 1
-    assert sum(r.self_ns for r in stages) == roots[0].host_ns
-    assert sum(r.self_ns for r in sp.rows) == round(sp.wall_ms * 1e6)
-    assert all(r.device_ms is None and not r.ops for r in sp.rows)
-    assert sp.device_ms is None and sp.busy_ms is None
+def _check(rep, want, out):
+    """What every report on the CPU holds; `want` = {counter: calls},
+    `out` the report as printed."""
+    assert rep.counts == {**dict.fromkeys(rep.counts, 0), **want}
+    assert all(rep.counts[k] == 0 for k in K)      # CPU: plain calls only
+    # the spans' self times, with the time no span holds, are the wall
+    assert rep.spans[-1].name == PF.OUTSIDE and rep.spans[-1].self_ns >= 0
+    assert sum(r.self_ns for r in rep.spans) == rep.wall_ns
+    assert all(r.host_ns >= r.self_ns >= 0 for r in rep.spans)
+    assert rep.frame_ms is None and rep.busy_ms is None \
+        and rep.kernel_ms is None
+    assert all(r.busy_ms is None and not r.top for r in rep.spans)
+    lines = out.splitlines()
+    for r in rep.spans:
+        row = [ln for ln in lines if ln.strip().startswith(r.name + " ")]
+        assert len(row) == 1 and row[0].endswith(PF.NOT_MEASURED), r.name
+    assert "device busy " + PF.NOT_MEASURED in out
 
 
 @pytest.mark.parametrize("route", [MEGA, GROUPS])
-def test_frame_split(testscene, route):
+def test_frame_split(testscene, route, capsys):
     compiled, arrays, cam = testscene
-    cfg = T.RenderConfig.tuned(xres=48, yres=32)
+    cfg = T.RenderConfig.tuned(xres=W, yres=H)
     w = PF.frame_workload("frame", compiled, arrays, cam, cfg, route)
-    before = _sites()
-    ref = w.run()
-    sp = PF.split(w.run, "cpu")
-    now = _sites()
-    assert all(now[k] is before[k] for k in before)
-    assert PF._same_frames(sp.result, ref)[0]
+    rep = PF.profile(w, "cpu")
     b = w.tracer.last_batches
     assert b == 2 * cfg.maxdepth
     if route == MEGA:
@@ -91,37 +93,32 @@ def test_frame_split(testscene, route):
                       for sc in compiled.scenes for g in sc.groups)
         assert (n_dense, n_bvh) == (7, 2)
         want = {"K4 plain": n_dense * b, "K5 plain": n_bvh * b}
-        # K5 runs in bvh_dispatch, one row per group and level
-        rows = [r for r in sp.stage_rows() if r.stage == "bvh_dispatch"]
-        assert {r.level for r in rows} == {0, 1, 2}
-        assert all(r.counts["K5 plain"] == 2 and r.group.startswith("0.g")
-                   for r in rows)
-    _check(w, sp, want)
-    levels = {r.level for r in sp.rows
-              if r.stage == "WavefrontTracer._down_level"}
-    assert levels == {0, 1, 2}
-    lines = PF.table(sp)
-    assert any(PF.NOT_MEASURED in ln for ln in lines)
+    _check(rep, want, capsys.readouterr().out)
+    # the wavefront tracer opens its span on either route
+    assert [r.name for r in rep.spans] == FRAME_SPANS
+    assert all(rep.row(n).calls == 1 for n in FRAME_SPANS[:-1])
+    assert rep.same is None and rep.per_frame is None
 
 
-def test_recursive_tracer_split(testscene):
+def test_recursive_tracer_split(testscene, capsys):
     compiled, arrays, cam = testscene
-    cfg = T.RenderConfig.tuned(xres=48, yres=32)
+    cfg = T.RenderConfig.tuned(xres=W, yres=H)
     w = PF.frame_workload("tracer", compiled, arrays, cam, cfg, MEGA,
                           recursive=True)
-    ref = w.run()
-    sp = PF.split(w.run, "cpu")
-    assert PF._same_frames(sp.result, ref)[0]
-    _check(w, sp, {"K1 plain": w.tracer.last_batches})
-    # the recursion's depth labels its rows
-    assert {r.level for r in sp.rows if r.stage == "Tracer._trace"} \
-        == set(range(cfg.maxdepth))
+    rep = PF.profile(w, "cpu")
+    _check(rep, {"K1 plain": w.tracer.last_batches},
+           capsys.readouterr().out)
+    # the recursive Tracer opens no span: its time is render.frame's own
+    assert [r.name for r in rep.spans] == [
+        "render.frame", "render.ray_setup", "render.scatter", PF.OUTSIDE]
+    frame = rep.row("render.frame")
+    assert frame.self_ns > rep.row("render.ray_setup").host_ns
 
 
 @pytest.mark.parametrize("route,kernel", [
     (dict(MEGA_EXT_MIN=8, BLOCK_MIN=8), "K2"),
     (dict(MEGA_EXT_MIN=8, BLOCK_VMEM_MAX=0), "K3")])
-def test_mesh_split(monkeypatch, route, kernel):
+def test_mesh_split(monkeypatch, route, kernel, capsys):
     for k, v in route.items():
         monkeypatch.setattr(MK, k, v)
     solid, lights, cam = scenes.mesh_scene(400, cast_shadows=True)
@@ -129,142 +126,207 @@ def test_mesh_split(monkeypatch, route, kernel):
     arrays = T.to_torch(compiled.arrays(), "cpu")
     cfg = T.RenderConfig(xres=64, yres=36, maxdepth=1)
     w = PF.frame_workload("mesh", compiled, arrays, cam, cfg, MEGA)
-    ref = w.run()
-    sp = PF.split(w.run, "cpu")
-    assert PF._same_frames(sp.result, ref)[0]
-    _check(w, sp, {"K1 plain": 2, f"{kernel} plain": 2})
-    row = sp.row("_run_blocks" if kernel == "K2" else "_run_external", 0)
-    assert row.calls == 2 and row.counts[f"{kernel} plain"] == 2
+    rep = PF.profile(w, "cpu")
+    _check(rep, {"K1 plain": 2, f"{kernel} plain": 2},
+           capsys.readouterr().out)
+    assert [r.name for r in rep.spans] == FRAME_SPANS
+    if kernel == "K2":
+        assert rep.program["k2.lanes"] >= rep.program["k2.live_lanes"] > 0
 
 
-def test_aa_split(testscene):
+def test_aa_split(testscene, capsys):
     compiled, arrays, cam = testscene
-    cfg = T.RenderConfig.tuned(xres=48, yres=32)
+    cfg = T.RenderConfig.tuned(xres=W, yres=H)
     w = PF.aa_workload("aa", compiled, arrays, cam, cfg, MEGA)
-    ref = w.run()
-    sp = PF.split(w.run, "cpu")
-    assert PF._same_frames(sp.result, ref)[0]
-    aa_row = sp.row("AARenderer._masked_trace")
-    assert aa_row.calls == 5
-    traced = sp.row("AARenderer._trace_pixels").calls
-    _check(w, sp, {"K1 plain": 2 * cfg.maxdepth * traced})
+    rep = PF.profile(w, "cpu")
+    traces = rep.row("wavefront.trace").calls
+    assert traces == 5 and rep.row("aa.frame").calls == 1
+    _check(rep, {"K1 plain": 2 * cfg.maxdepth * traces},
+           capsys.readouterr().out)
+    assert {r.name for r in rep.spans} == {
+        "aa.frame", "aa.mask_planes", "aa.pass_setup", "wavefront.trace",
+        "aa.variance", PF.OUTSIDE}
 
 
-def test_config5_split(testscene):
+def test_config5_split(testscene, capsys):
     compiled, arrays, cam = testscene
-    w = PF.config5_workload(compiled, arrays, cam, 48, 32)
-    ref = w.run()
-    sp = PF.split(w.run, "cpu")
-    ok, text = w.same(sp.result, ref)
-    assert ok, text
-    _check(w, sp, {"K1 plain": 6})
-    for stage in ("backward", "Adam.step", "optimize._save"):
-        row = sp.row(stage)
-        assert row.calls == 1 and row.host_ns > 0, stage
-
-
-def test_staged_restores_after_an_error(testscene):
-    before = _sites()
-    with pytest.raises(RuntimeError, match="inside"):
-        with PF.staged():
-            assert all(a is not b for a, b in
-                       zip(_sites().values(), before.values()))
-            # a kernel wrapper's launch counter stays the original's
-            MK.mega_select.launches += 1
-            MK.mega_select.launches -= 1
-            raise RuntimeError("inside")
-    now = _sites()
-    assert all(now[k] is before[k] for k in before)
-
-
-@pytest.mark.parametrize("stage,error", [
-    (PF.Stage("gone", ("glome_tpu_torch.megakernel:pack_tabels",)),
-     AttributeError),
-    (PF.Stage("gone", ("glome_tpu_torch.render:Renderer.rendr",)),
-     AttributeError),
-    # a method the class inherits: patch it where it is defined
-    (PF.Stage("inherited",
-              ("glome_tpu_torch.trace_wavefront:"
-               "WavefrontTracer._fold_textures",)), AttributeError),
-    # trace.py and trace_wavefront.py read it by name: both must be listed
-    (PF.Stage("unlisted", ("glome_tpu_torch.intersect:"
-                           "intersect_multi_table",)), LookupError),
-    (PF.Stage("mixed", ("glome_tpu_torch.intersect:intersect_multi",
-                        "glome_tpu_torch.trace:intersect")), ValueError)])
-def test_missing_target_raises(stage, error):
-    before = _sites()
-    with pytest.raises(error):
-        with PF.staged((stage,)):
-            pass
-    now = _sites()
-    assert all(now[k] is before[k] for k in before)
+    w = PF.config5_workload(compiled, arrays, cam, W, H)
+    rep = PF.profile(w, "cpu")
+    _check(rep, {"K1 plain": 6}, capsys.readouterr().out)
+    # the step's trace is a record of its own; the soft pass, the
+    # backward, Adam.step and the checkpoint open no span
+    assert [r.name for r in rep.spans] == ["wavefront.trace", PF.OUTSIDE]
+    assert rep.row("wavefront.trace").calls == 1
+    assert rep.spans[-1].self_ns > 0
 
 
 def test_attribute_partitions_device_ops():
-    """Each op goes to the innermost stage range whose host span holds
-    its launch; ops launched outside every range, or with no host launch
-    found, to none; busy time is the union of device spans."""
+    """Busy time is the union of device spans; a kernel's name is its
+    base name; top_ops sums by base name, most time first."""
     D = PF.DeviceOp
-    ranges = [(0, 100, 0), (10, 40, 1), (20, 30, 2), (50, 60, 3),
-              (200, 300, 4)]
-    ops = [D("a", 0, 5, 25), D("b", 5, 9, 35), D("c", 8, 12, 45),
-           D("d", 20, 30, 55), D("e", 30, 31, 150), D("f", 31, 32, None),
-           D("g", 40, 41, 5), D("h", 41, 42, 300), D("i", 50, 60, 10)]
-    assert PF.attribute(ops, ranges) == [2, 1, 0, 3, None, None, 0, 4, 1]
+    ops = [D("a", 0, 5), D("b", 5, 9), D("c", 8, 12), D("d", 20, 30),
+           D("e", 30, 31), D("f", 31, 32), D("g", 40, 41), D("h", 41, 42),
+           D("i", 50, 60)]
     assert PF.busy_ms(ops) == pytest.approx(
         ((12 - 0) + (32 - 20) + (42 - 40) + (60 - 50)) / 1e6)
     assert PF.busy_ms([]) == 0.0
     assert PF.kernel_base("void block_select_kernel<false>(float const*, "
                           "int)") == "block_select_kernel"
+    two = [D("void k<1>(int)", 0, 4), D("void k<2>(int)", 10, 13),
+           D("m", 0, 5)]
+    assert PF.top_ops(two) == [("k", 7e-6, 2), ("m", 5e-6, 1)]
+
+
+def _clock(monkeypatch, step):
+    ticks = iter(range(0, 10 ** 15, step))
+    monkeypatch.setattr(TM, "_ns", lambda: next(ticks))
+    kept = TM.frames()
+    return kept[-1].id if kept else -1
+
+
+def _new(last):
+    return [f for f in TM.frames() if f.id > last]
+
+
+def test_nested_spans_partition_the_root(monkeypatch):
+    last = _clock(monkeypatch, 10)
+    with TM.frame("f"):
+        with TM.span("a"):
+            with TM.span("b"):
+                pass
+        with TM.span("c"):
+            pass
+    with TM.span("bare"):            # no span open: a record of its own
+        pass
+    recs = _new(last)
+    roots = sum(r.sums[r.name][1] for r in recs)
+    rows = PF.span_rows(recs, roots + 70)
+    assert [r.name for r in rows] == ["f", "a", "b", "c", "bare", PF.OUTSIDE]
+    by = {r.name: r for r in rows}
+    assert by["f"].self_ns == (by["f"].host_ns - by["a"].host_ns
+                               - by["c"].host_ns) > 0
+    assert by["a"].self_ns == by["a"].host_ns - by["b"].host_ns > 0
+    assert by["bare"].self_ns == by["bare"].host_ns > 0
+    assert by[PF.OUTSIDE].self_ns == 70
+    assert sum(r.self_ns for r in rows) == roots + 70
+    assert all(r.calls == 1 for r in rows[:-1])
+    assert all(r.busy_ms is None for r in rows)
+
+
+def test_a_span_opened_twice_gets_the_union_of_its_intervals(monkeypatch):
+    last = _clock(monkeypatch, 1000)
+    with TM.frame("aa.frame"):                   # 1000-8000
+        with TM.span("aa.pass_setup"):           # 2000-3000
+            pass
+        with TM.span("wavefront.trace"):         # 4000-5000
+            pass
+        with TM.span("aa.pass_setup"):           # 6000-7000
+            pass
+    f, = _new(last)
+    assert [s[1:3] for s in f.spans] == [[1000, 8000], [2000, 3000],
+                                         [4000, 5000], [6000, 7000]]
+    u = f.to_unix
+    ops = [PF.DeviceOp(n, u(a), u(b)) for n, a, b in (
+        ("x", 500, 1200),       # 500 ns before the frame, 200 in it
+        ("p", 1500, 2500),      # 500 in the first pass_setup
+        ("q", 2200, 2400),      # inside p's: adds nothing to the union
+        ("r", 4200, 4300),      # in the trace
+        ("s", 5500, 6500),      # 500 in the second pass_setup
+        ("t", 6800, 7500),      # 200 in it
+        ("y", 8500, 9000))]     # after the frame
+    rows = {r.name: r for r in PF.span_rows([f], 9000, ops)}
+    assert rows["aa.pass_setup"].calls == 2
+    assert rows["aa.pass_setup"].busy_ms == pytest.approx(1200 / 1e6)
+    assert {n for n, _ms, _c in rows["aa.pass_setup"].top} == {"p", "q",
+                                                               "s", "t"}
+    assert rows["wavefront.trace"].busy_ms == pytest.approx(100 / 1e6)
+    assert rows["aa.frame"].busy_ms == pytest.approx(
+        (200 + 1000 + 100 + 1000 + 700) / 1e6)
+    out = rows[PF.OUTSIDE]
+    assert out.self_ns == 9000 - 7000
+    assert out.busy_ms == pytest.approx(1000 / 1e6)
+    assert [n for n, _ms, _c in out.top] == ["x", "y"]
 
 
 def test_main_on_the_cpu(capsys):
-    rc = PF.main(["--scene", "test", "--route", "mega", "--xres", "32",
-                  "--yres", "24", "--device", "cpu"])
+    rc = PF.main(["--scene", "test", "--route", "mega", "--xres", str(W),
+                  "--yres", str(H), "--device", "cpu"])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert "[cpu]" in out and "device busy not measured" in out
-    assert "bit-equal to the unprofiled frame: True" in out
+    assert "[cpu]" in out and "eager frame" in out \
+        and "device busy not measured" in out
     rows = [ln for ln in out.splitlines()
-            if ln.strip().startswith(("mega_select ", "finalize "))]
-    assert rows and all(PF.NOT_MEASURED in ln for ln in rows)
+            if ln.strip().startswith(("render.frame ", "wavefront.trace "))]
+    assert len(rows) == 2 and all(ln.endswith(PF.NOT_MEASURED)
+                                  for ln in rows)
+    assert "'K1 plain': 6" in out
 
 
-@pytest.mark.parametrize("aa", [False, True])
-def test_compiled_frame_report(testscene, aa):
+def test_main_trace_writes_the_spans(tmp_path, capsys):
+    rc = PF.main(["--scene", "test", "--xres", str(W), "--yres", str(H),
+                  "--device", "cpu", "--trace", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    path, = tmp_path.iterdir()
+    assert str(path) in out and path.suffix == ".json"
+    with open(path) as fh:
+        names = {e.get("name") for e in json.load(fh)["traceEvents"]}
+    assert set(FRAME_SPANS[:-1]) <= names
+
+
+@pytest.mark.parametrize("case", [False, True, "k2"])
+def test_compiled_frame_report(testscene, case, monkeypatch, capsys):
     compiled, arrays, cam = testscene
-    cfg = T.RenderConfig.tuned(xres=48, yres=32)
-    name, run, eager, tracer = PF.compiled_workload(
-        "compiled", compiled, arrays, cam, cfg, aa)
-    rep = PF.profile_compiled(name, run, eager, tracer, "cpu")
+    if case == "k2":
+        # SPD balls at size factor 2: its 91 spheres routed to K2
+        from glome_tpu_torch import spd
+        from glome_tpu_torch.scenes.spd_balls import nff
+        monkeypatch.setattr(MK, "BLOCK_MIN", 64)
+        s = spd.parse(nff(2))
+        compiled = T.compile_scene(s.geom, s.lights)
+        arrays, cam = T.to_torch(compiled.arrays(), "cpu"), s.cam
+        assert MK.get_plan(compiled).blocks
+    aa = case is True
+    cfg = T.RenderConfig.tuned(xres=W, yres=H)
+    w = PF.compiled_workload("compiled", compiled, arrays, cam, cfg, aa)
+    rep = PF.profile(w, "cpu")
+    out = capsys.readouterr().out
     # on the CPU the static-width levels run eagerly: nothing captured,
     # the plain versions stand in, no device number
-    assert rep.same and rep.busy_ms is None and rep.kernel_ms is None
+    assert rep.same and "equal to the eager frame: True" in out
     assert rep.per_frame == {"captures": 0, "replays": 0, "host_reads": 0}
-    assert all(rep.counts[k] == 0 for k in K)
-    # two K1 batches a level of every trace (the AA frame traces up to 5)
+    assert rep.pool_bytes == 0
+    # two K1 batches a level of every trace (the AA frame traces 5)
     per_trace = 2 * cfg.maxdepth
     n = rep.counts["K1 plain"]
-    assert n == per_trace if not aa else (n % per_trace == 0 and n > 0)
+    _check(rep, {"K1 plain": n, "K2 plain": rep.counts["K2 plain"]}, out)
+    assert n == (5 * per_trace if aa else per_trace)
     if not aa:
-        assert tracer.last_frame["widths"][0] == 48 * 32
-    # the replay frame split by the program's spans; no device number
-    names = [r[0] for r in rep.spans]
+        assert w.tracer.last_frame["widths"][0] == W * H
+    # the replay frame split by the program's spans
+    names = [r.name for r in rep.spans]
     assert names[0] == ("aa.frame" if aa else "wavefront.trace")
-    assert "wavefront.count_read" in names
-    assert all(r[4] is None and r[2] >= r[3] >= 0 for r in rep.spans)
-    assert 0 < rep.lanes["k1.live_lanes"] < rep.lanes["k1.lanes"]
+    # a level's one host read, where the level spawns child rays (the
+    # flake spawns none)
+    assert ("wavefront.count_read" in names) == (case != "k2")
+    assert 0 < rep.program["k1.live_lanes"] < rep.program["k1.lanes"]
+    if case == "k2":
+        # one K2 call a batch, beside K1's, its dead lanes counted
+        assert rep.counts["K2 plain"] == per_trace
+        assert 0 < rep.program["k2.live_lanes"] < rep.program["k2.lanes"]
+        assert "K2 lanes launched" in out
+    else:
+        assert rep.counts["K2 plain"] == 0
 
 
 def test_main_compiled_frame_on_the_cpu(capsys):
-    rc = PF.main(["--scene", "test", "--xres", "32", "--yres", "24",
+    rc = PF.main(["--scene", "test", "--xres", str(W), "--yres", str(H),
                   "--device", "cpu", "--frame", "compiled"])
     out = capsys.readouterr().out
     assert rc == 0, out
-    assert "compiled frame: replay" in out and "device busy not measured" \
-        in out
+    assert "compiled frame:" in out and "device busy not measured" in out
     assert "every compiled frame equal to the eager frame: True" in out
-    assert "the program's spans in that frame" in out
+    assert "the program's spans" in out
     with pytest.raises(SystemExit, match="megakernel route"):
         PF.main(["--scene", "test", "--route", "groups", "--device", "cpu",
                  "--frame", "compiled"])

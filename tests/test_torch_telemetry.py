@@ -2,7 +2,8 @@
 
 On the CPU: span nesting, self time and frame ids on a counting clock;
 one frame record per Renderer.render / AARenderer.render call, with the
-spans the benchmark reads; the compiled frame's per-launch K1 lanes
+spans the benchmark reads (wavefront.trace on either route, none of its
+own from the recursive Tracer); the compiled frame's per-launch K1 lanes
 (the static widths) and live lanes (the eager frame's exact batch sizes
 on the same rays); host reads and images as the eager frame has them;
 the K2 launches of a scene with a block group, beside K1's, in both
@@ -28,6 +29,7 @@ import torch
 import glome_tpu_torch as T
 from glome_tpu_torch import telemetry as TM
 from glome_tpu_torch.graphs import COMPILED, EAGER
+from glome_tpu_torch.intersect import GROUPS
 from glome_tpu_torch.scenes import test_scene as torch_test_scene
 from glome_tpu_torch.trace_wavefront import whole_rows
 
@@ -142,13 +144,29 @@ def test_the_ring_is_bounded():
 
 # --- the frames' records ------------------------------------------------------
 
-@pytest.mark.parametrize("frame", [COMPILED, EAGER])
+@pytest.mark.parametrize("frame", [COMPILED, EAGER, "groups", "recursive"])
 def test_one_record_per_renderer_call(scene, cfg, frame):
+    """The wavefront tracer's frames on the megakernel route, its eager
+    frame on the pass-per-group route (which opens wavefront.trace
+    too), and the recursive Tracer, which opens no span of its own."""
     compiled, arrays, cam = scene
-    view = T.Renderer(T.WavefrontTracer(compiled, cfg, frame=frame), cam,
-                      cfg)
+    if frame == "recursive":
+        tracer = T.Tracer(compiled, cfg)
+    elif frame == "groups":
+        tracer = T.WavefrontTracer(compiled, cfg, route=GROUPS, frame=EAGER)
+    else:
+        tracer = T.WavefrontTracer(compiled, cfg, frame=frame)
+    view = T.Renderer(tracer, cam, cfg)
     before = _last()
     view.render(arrays)
+    if frame == "recursive":
+        f, = _new(before)
+        assert f.name == "render.frame"
+        spans = ["render.frame", "render.ray_setup", "render.scatter"]
+        assert [s[0] for s in f.spans] == spans
+        assert all(f.sums[k][0] == 1 for k in spans)
+        assert not f.launches and "k1.lanes" not in f.counts
+        return
     view.render(arrays, subpixel_offset=0.25)
     recs = _new(before)
     assert [f.name for f in recs] == ["render.frame"] * 2
@@ -164,6 +182,8 @@ def test_one_record_per_renderer_call(scene, cfg, frame):
         wt = f.sums["wavefront.trace"]
         assert wt[2] == wt[1] - reads[1]
         assert reads[0] == (cfg.maxdepth - 1 if frame == COMPILED else 0)
+        # the group route's passes record no K1 launch
+        assert bool(f.launches) == (frame != "groups")
 
 
 def test_one_record_per_aa_call(scene, cfg):
