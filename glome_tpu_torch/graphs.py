@@ -42,7 +42,8 @@ the level's child counts, which sizes the next level.
     a capture frame launches each kernel once, as a replay frame does.
   - Counters.  Inside a capture the kernel wrappers run, and add to
     their .launches (the plain versions and megakernel.pack_tables to
-    their .calls), without running anything.  The capture's counter
+    their .calls, megakernel.finalize to its .fused_calls or
+    .torch_calls), without running anything.  The capture's counter
     deltas are taken back and kept with the segment, and every replay
     adds them: the counters count what ran.
   - Memory.  The segments captured by one frame share one memory pool:
@@ -118,11 +119,17 @@ def unflatten(like, leaves):
     return go(like)
 
 
+def needs_grad(*trees) -> bool:
+    """Whether autograd must see ops on the trees: grad mode is on and a
+    tensor of theirs requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for tree in trees
+                                           for t in tensors(tree))
+
+
 def check_no_grad(*trees):
-    """The compiled frame records no autograd graph: raise when grad mode
-    is on and any tensor of the trees requires grad."""
-    if torch.is_grad_enabled() and any(t.requires_grad for tree in trees
-                                       for t in tensors(tree)):
+    """The compiled frame records no autograd graph: raise when a tensor
+    of the trees needs a gradient (needs_grad)."""
+    if needs_grad(*trees):
         raise RuntimeError(
             "the compiled frame records no gradient: a scene tensor or ray "
             "requires grad (trace with frame=EAGER, or under "
@@ -146,10 +153,13 @@ def kernel_counters():
 
 def counters():
     """(function, attribute) of every counter a segment carries: the
-    kernel_counters() and the builds of the select tables,
-    megakernel.pack_tables' .calls."""
+    kernel_counters(), the builds of the select tables,
+    megakernel.pack_tables' .calls, and megakernel.finalize's fused and
+    torch calls."""
     from . import megakernel as MK
-    return kernel_counters() + ((MK.pack_tables, "calls"),)
+    return kernel_counters() + ((MK.pack_tables, "calls"),
+                                (MK.finalize, "fused_calls"),
+                                (MK.finalize, "torch_calls"))
 
 
 class Segment:

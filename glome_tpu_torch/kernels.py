@@ -48,11 +48,13 @@ BVH_SOURCES = ("bvh_select.cu", "prims.cuh", "walk.cuh", "cons.cuh",
                "bvh_walk.cuh")
 MICRO_PRIMS_SOURCES = ("micro_prims.cu", "micro.cuh")
 MICRO_KWIDE_SOURCES = ("micro_kwide.cu", "micro.cuh")
+FINALIZE_SOURCES = ("finalize_hit.cu", "prims.cuh")
 LIBRARIES = {"glome_mega": MEGA_SOURCES, "glome_block": BLOCK_SOURCES,
              "glome_mesh": MESH_SOURCES, "glome_dense": DENSE_SOURCES,
              "glome_bvh": BVH_SOURCES,
              "glome_micro_prims": MICRO_PRIMS_SOURCES,
-             "glome_micro_kwide": MICRO_KWIDE_SOURCES}
+             "glome_micro_kwide": MICRO_KWIDE_SOURCES,
+             "glome_finalize": FINALIZE_SOURCES}
 
 # The near-first walks of K1-K3 and K5 (csrc/bvh_walk.cuh) keep their
 # deferred subtrees on a stack in dynamic shared memory: WALK_THREADS
@@ -213,6 +215,15 @@ def _setup_bvh(lib):
     lib.glome_bvh_select.restype = _i32
 
 
+def _setup_finalize(lib):
+    _ll = ctypes.c_longlong
+    lib.glome_finalize_hit.argtypes = [
+        _vp, _ll, _ll, _vp, _ll, _ll, _i32, _vp, _vp, _vp, _i32, _vp, _i32,
+        _vp, _vp, _i32, _i32, _vp, _vp, _vp, _i32, _vp, _i32, _vp, _vp, _vp,
+        _vp, _vp, _vp]
+    lib.glome_finalize_hit.restype = _i32
+
+
 # the C entries of csrc/micro_prims.cu, one per variant:
 # (rays, T, table, [P, [STEPS]], out, stream)
 MICRO_PRIMS_ENTRIES = {
@@ -288,13 +299,19 @@ def micro_kwide_lib():
     return _load("glome_micro_kwide", _setup_micro_kwide)
 
 
+def finalize_hit_lib():
+    """The loaded fused finalize library (csrc/finalize_hit.cu), built on
+    first use."""
+    return _load("glome_finalize", _setup_finalize)
+
+
 def load_all():
     """Run every library's loader at once, so the nvcc builds overlap
     (chip_smoke.py builds every kernel inside its time limit); returns
     the paths of all the libraries, in LIBRARIES order."""
     loaders = (mega_select_lib, block_select_lib, mesh_select_lib,
                dense_select_lib, bvh_select_lib, micro_prims_lib,
-               micro_kwide_lib)
+               micro_kwide_lib, finalize_hit_lib)
     with ThreadPoolExecutor(len(loaders)) as pool:
         futs = [pool.submit(f) for f in loaders]
         for f in futs:

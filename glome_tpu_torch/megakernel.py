@@ -23,7 +23,9 @@ any-hit variant.  This module keeps that design and its host side:
     mesh_kernel K3), all kernels or all plain versions (KERNELS / PLAIN);
   - finalize: re-evaluates the winners differentiably (normals,
     object-space rays, texture/tag stacks, difference-B retexture), so
-    gradients flow through torch autograd.
+    gradients flow through torch autograd; a call on CUDA tensors that
+    needs no gradient runs the same arithmetic forward only, in one
+    hand-written launch (csrc/finalize_hit.cu).
 
 The kernel only SELECTS: (t, wid, aux) with wid = global_prim*2 + slot
 (slot 0 = entry crossing, 1 = exit), -1 = miss.
@@ -1464,6 +1466,16 @@ mega_select_plain.calls = 0
 
 # --- differentiable finalize ------------------------------------------------
 
+# the kernel switch of every entry point: all three select kernels (K1
+# mega_select, K2 block_select, K3 mesh_block_select) or all three plain
+# versions, never a mix.  KERNELS launches the CUDA kernels on CUDA
+# tensors (each wrapper takes its plain version on CPU tensors); PLAIN
+# runs the plain versions on any device.  finalize takes its fused
+# kernel only under KERNELS.
+KERNELS = "kernels"
+PLAIN = "plain"
+
+
 def _meta_tables(plan: MegaPlan, device):
     """finalize's static per-prim tables on `device` (cached): the f32
     metadata columns [tex*4, tag*4, serial, neg, cid, row, useatex] and
@@ -1488,11 +1500,41 @@ def _meta_tables(plan: MegaPlan, device):
 
 
 def finalize(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux=None,
-             want_meta: bool = True):
-    """Re-evaluate the winning candidates differentiably and assemble
-    the Hit record (normals via the geom functions, instance object
-    rays, texture/tag stacks, difference-B retexture via the kernel's
-    first-containing-A-member aux output)."""
+             want_meta: bool = True, select: str = KERNELS):
+    """Re-evaluate the winning candidates and assemble the Hit record
+    (normals via the geom functions, instance object rays, texture/tag
+    stacks, difference-B retexture via the kernel's
+    first-containing-A-member aux output).
+
+    A call on CUDA tensors through the kernels (`select` KERNELS) that
+    needs no gradient (graphs.needs_grad) runs csrc/finalize_hit.cu, one
+    launch with the same result bit for bit (_finalize_fused); every
+    other call, and one whose tensors the kernel does not read
+    (_fused_layout, _finalize_groups), runs the differentiable torch ops
+    (_finalize_torch).  finalize.fused_calls and .torch_calls count the
+    two."""
+    from .graphs import needs_grad
+    if (select == KERNELS and o.device.type == "cuda"
+            and not needs_grad(arrays, (o, d, t))):
+        h = _finalize_fused(compiled, plan, arrays, o, d, t, wid, aux,
+                            want_meta)
+        if h is not None:
+            finalize.fused_calls += 1
+            return h
+    finalize.torch_calls += 1
+    return _finalize_torch(compiled, plan, arrays, o, d, t, wid, aux,
+                           want_meta)
+
+
+finalize.fused_calls = 0
+finalize.torch_calls = 0
+
+
+def _finalize_torch(compiled, plan: MegaPlan, arrays, o, d, t, wid,
+                    aux=None, want_meta: bool = True):
+    """finalize in torch ops, differentiable: the winners re-evaluated
+    per (ptype, transformed) combo over one row gather of every prim's
+    parameters."""
     from .compile import TEX_DEPTH, TAG_DEPTH, group_device_params
     from .intersect import Hit, _kernel_hits2
     from .vec import finite_grad, vscaleadd
@@ -1654,16 +1696,153 @@ def finalize(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux=None,
                prim_serial=ser.to(torch.int32))
 
 
+# --- the fused finalize ----------------------------------------------------
+
+# int64 words of a group's row in the fused finalize's descriptor
+# (csrc/finalize_hit.cu FIN_GW): first global prim, field count, ptype,
+# transformed, warp, m_inv pointer, then per field its rows pointer,
+# index pointer (a shared-vertex mesh's int32 (T, 3) index, or 0), index
+# column and width
+FIN_FIELDS = 6
+FIN_GW = 6 + 4 * FIN_FIELDS
+
+
+def _fused_layout(x):
+    """The layout torch's ops see on an (N, 3) ray tensor: True
+    row-major (contiguous rows), False column-major (the rows of an
+    (8, N) ray table), None any other (the kernel does not read it)."""
+    if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
+        return None
+    if x.stride(1) == 1 and (x.stride(0) == 3 or x.shape[0] < 2):
+        return True
+    if x.stride(0) == 1 and x.stride(1) >= x.shape[0]:
+        return False
+    return None
+
+
+def _hit_layout(plan: MegaPlan, ray_row: bool):
+    """(pos, norm) row-major of _finalize_torch's Hit on rays of layout
+    `ray_row`, which the fused Hit copies, so that later reductions over
+    them (torch.sum orders by layout) round alike: pos follows the rays;
+    norm is the last combo's normal, row-major but for an untransformed
+    sphere's on column-major rays, and row-major wherever a transformed
+    combo's world normal is taken."""
+    xf = any(tr for _p, tr, _g, _w in plan.combos)
+    last = plan.combos[-1][:2] if plan.combos else None
+    return ray_row, ray_row or xf or last != ("sphere", False)
+
+
+def _finalize_groups(compiled, plan: MegaPlan, arrays, device):
+    """The fused finalize's group descriptor, (G, FIN_GW) int64 on
+    `device` (vec.const: made once per set of scene tensors), or None
+    where a group's parameters are not float32 rows the kernel reads in
+    place."""
+    from .compile import _mesh_index
+    warp = {(si, gi) for _p, tr, glist, w in plan.combos if tr and w
+            for si, gi in glist}
+    rows = []
+    for si, sc in enumerate(compiled.scenes):
+        for gi, g in enumerate(sc.groups):
+            if g.size == 0:
+                continue
+            ga = arrays["scenes"][si][gi]
+            fields = []
+            for name, wd in FIELDS[g.ptype]:
+                if g.mesh_src is None:
+                    fields.append((ga[name], None, 0, wd))
+                    continue
+                normals = name[0] == "n"
+                src = ga["norms" if normals else "verts"]
+                index = _mesh_index(g, "tri_n" if normals else "tri",
+                                    device)
+                fields.append((src, index, int(name[1]) - 1, 3))
+            m_inv = ga["m_inv"] if g.m_inv is not None else None
+            tensors = [f[0] for f in fields] + (
+                [m_inv] if m_inv is not None else [])
+            if any(x.dtype != torch.float32 or not x.is_contiguous()
+                   or x.device != device for x in tensors):
+                return None
+            if any(ix is not None and (ix.dtype != torch.int32
+                                       or not ix.is_contiguous())
+                   for _x, ix, _c, _w in fields):
+                return None
+            row = [plan.prim_base[(si, gi)][0], len(fields),
+                   PTYPE_CODE[g.ptype], int(m_inv is not None),
+                   int((si, gi) in warp),
+                   m_inv.data_ptr() if m_inv is not None else 0]
+            for x, ix, col, wd in fields:
+                row += [x.data_ptr(), 0 if ix is None else ix.data_ptr(),
+                        col, wd]
+            rows.append(row + [0] * (FIN_GW - len(row)))
+    if not rows:
+        return None
+    return const(np.asarray(rows, dtype=np.int64), torch.int64, device)
+
+
+def _vec3_out(n, row, device):
+    """An (N, 3) float32 output, row-major or column-major."""
+    if row:
+        return torch.empty((n, 3), dtype=torch.float32, device=device)
+    return torch.empty((3, n), dtype=torch.float32, device=device).t()
+
+
+def _finalize_fused(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux,
+                    want_meta):
+    """finalize's Hit from csrc/finalize_hit.cu: one launch on the current
+    stream, no host read, so a captured segment replays it.  Returns None
+    where the kernel does not read the call's tensors: rays of another
+    layout than _fused_layout's two, or a group that _finalize_groups
+    refuses."""
+    from .compile import TEX_DEPTH, TAG_DEPTH
+    from .intersect import Hit
+    from . import kernels
+    ray_row = _fused_layout(o)
+    if ray_row is None or _fused_layout(d) is not ray_row:
+        return None
+    dev = o.device
+    groups = _finalize_groups(compiled, plan, arrays, dev)
+    if groups is None:
+        return None
+    metaf, ltab = _meta_tables(plan, dev)
+    n = o.shape[0]
+    t = t.to(torch.float32).contiguous()
+    wid = wid.to(torch.int32).contiguous()
+    retex = (want_meta and aux is not None and bool(plan.atex_all.any()))
+    aux = aux.to(torch.int32).contiguous() if retex else None
+    pos_row, norm_row = _hit_layout(plan, ray_row)
+    warp = any(tr and w for _p, tr, _g, w in plan.combos)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out_t = torch.empty(n, **f32)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    pos = _vec3_out(n, pos_row, dev)
+    norm = _vec3_out(n, norm_row, dev)
+    obj_o, obj_d = ((torch.empty((n, 3), **f32), torch.empty((n, 3), **f32))
+                    if warp else (o, d))
+    tex = torch.empty((n, TEX_DEPTH), **i32)
+    tag = torch.empty((n, TAG_DEPTH), **i32)
+    ser = torch.empty(n, **i32)
+    if n:
+        lib = kernels.finalize_hit_lib()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.glome_finalize_hit(
+                o.data_ptr(), o.stride(0), o.stride(1), d.data_ptr(),
+                d.stride(0), d.stride(1), int(ray_row), t.data_ptr(),
+                wid.data_ptr(), None if aux is None else aux.data_ptr(), n,
+                groups.data_ptr(), groups.shape[0], metaf.data_ptr(),
+                ltab.data_ptr(), plan.n_prims, int(retex), out_t.data_ptr(),
+                hit.data_ptr(), pos.data_ptr(), int(pos_row),
+                norm.data_ptr(), int(norm_row),
+                obj_o.data_ptr() if warp else None,
+                obj_d.data_ptr() if warp else None, tex.data_ptr(),
+                tag.data_ptr(), ser.data_ptr(), ctypes.c_void_p(stream))
+        kernels.check_launch(lib, err, "finalize_hit")
+    return Hit(t=out_t, hit=hit, pos=pos, norm=norm, obj_o=obj_o,
+               obj_d=obj_d, tex_stack=tex, tag_stack=tag, prim_serial=ser)
+
+
 # --- entry points ----------------------------------------------------------
-
-# the kernel switch of every entry point: all three select kernels (K1
-# mega_select, K2 block_select, K3 mesh_block_select) or all three plain
-# versions, never a mix.  KERNELS launches the CUDA kernels on CUDA
-# tensors (each wrapper takes its plain version on CPU tensors); PLAIN
-# runs the plain versions on any device.
-KERNELS = "kernels"
-PLAIN = "plain"
-
 
 def kernel_set(select: str):
     """(K1, K2, K3) select functions of the named set."""
@@ -1806,7 +1985,7 @@ def mega_intersect(compiled, arrays, o, d, sid=None, tmax=None,
     t, wid, aux = _select_all(compiled, plan, arrays,
                               _ray_table(o, d, seed, sid), shadow, select)
     return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux,
-                    want_meta=not shadow)
+                    want_meta=not shadow, select=select)
 
 
 def mega_shadow(compiled, arrays, o, d, sid=None, tmax=None,
@@ -1837,7 +2016,8 @@ def mega_intersect_table(compiled, arrays, table, select: str = KERNELS,
                               k2_live, tables)
     o = table[0:3].t()
     d = table[3:6].t()
-    return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux)
+    return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux,
+                    select=select)
 
 
 def mega_shadow_table(compiled, arrays, table, select: str = KERNELS,

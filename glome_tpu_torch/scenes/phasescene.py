@@ -359,3 +359,75 @@ def two_prim_scene(P=None):
     ])
     lights = (P.light((-3, 6, 4), (60, 60, 60)),)
     return solid, lights, P.camera((0, 2, 6), (0, 1, 0), (0, 1, 0), 45)
+
+
+def ptypes_scene(P=None):
+    """Every primitive type of the megakernel's FIELDS (sphere, plane,
+    box, triangle, trianglenorm, disc, cylinder, cone), each once plain
+    and once under a scale and a rotation, a shared-vertex mesh (a
+    triangle group and a trianglenorm group) and a retexture difference
+    (a box minus a sphere: the difference-B retexture and the flipped
+    normals of its B surface), built with package P: the scene of the
+    fused finalize's checks.  Returns (solid, lights, camera)."""
+    from importlib import import_module
+    P = _package(P)
+    S = import_module(P.__name__ + ".solids")
+
+    def mat(c):
+        return P.t_uniform(P.Surface(color=c, ambient=0.3, kd=0.7))
+
+    def prims():
+        return [
+            P.sphere((0, 0, 0), 0.8),
+            P.box((-0.7, -0.6, -0.5), (0.7, 0.6, 0.5)),
+            P.triangle((-0.9, -0.8, 0), (0.9, -0.7, 0.2), (0, 0.9, -0.1)),
+            P.trianglenorm((-0.9, -0.8, 0), (0.9, -0.7, 0.2),
+                           (0, 0.9, -0.1), (0, 0.3, -1), (0.4, 0, -1),
+                           (-0.3, -0.2, -1)),
+            P.disc((0, 0, 0), (0.2, 0.3, -1), 0.8),
+            S.CylinderZ(0.5, -0.6, 0.6),
+            S.ConeZ(0.6, -0.5, 0.5, 0.9),
+        ]
+
+    items = []
+    for k, s in enumerate(prims()):
+        c = (0.2 + 0.1 * k, 0.9 - 0.1 * k, 0.5)
+        items.append(P.tex(P.transform(s, [P.translate((2.0 * k - 6, 1.2,
+                                                        0))]), mat(c)))
+        items.append(P.tex(P.transform(s, [
+            P.scale((1.0, 0.6, 1.2)), P.rotate((0.6, 0.8, 0.0), 0.7),
+            P.translate((2.0 * k - 6, -1.2, 0))]), mat(c[::-1])))
+    # plain (untransformed) prims of every type
+    items += [P.tex(P.sphere((-5, 3.4, 1), 0.7), mat((1, 0, 0))),
+              P.tex(P.box((-3.6, 2.8, 0.5), (-2.6, 3.9, 1.4)),
+                    mat((0, 1, 0))),
+              P.tex(P.triangle((-2, 2.8, 1), (-0.6, 2.9, 1.2),
+                               (-1.3, 4.0, 0.9)), mat((0, 0, 1))),
+              P.tex(P.trianglenorm((-0.2, 2.8, 1), (1.2, 2.9, 1.2),
+                                   (0.5, 4.0, 0.9), (0, 0.3, -1),
+                                   (0.4, 0, -1), (-0.3, -0.2, -1)),
+                    mat((1, 1, 0))),
+              P.tex(P.disc((2.2, 3.4, 1), (0.1, -0.2, -1), 0.6),
+                    mat((0, 1, 1))),
+              # on the z axis: the cone in front of the cylinder, which
+              # shows as a ring around it
+              P.tex(S.CylinderZ(0.5, 1.5, 2.5), mat((1, 0, 1))),
+              P.tex(S.ConeZ(0.3, -0.5, 0.5, 0.9), mat((0.5, 0.5, 1))),
+              P.tex(P.plane((0, -3.2, 0), (0, 1, 0)), mat((0.7, 0.7, 0.7)))]
+    # a shared-vertex mesh: rows with vertex normals (trianglenorm) and
+    # rows without (triangle)
+    rng = np.random.default_rng(11)
+    verts = rng.uniform(-0.8, 0.8, (24, 3)) + np.array([5.0, 3.4, 1.5])
+    norms = rng.normal(size=(24, 3)) + np.array([0.0, 0.0, -3.0])
+    norms /= np.linalg.norm(norms, axis=1, keepdims=True)
+    vi = rng.integers(0, 24, (16, 3))
+    ni = np.where(np.arange(16)[:, None] % 2 == 0, vi, -1)
+    tris = np.concatenate([vi, ni, np.full((16, 2), -1)], axis=1)
+    items.append(P.tex(P.mesh(verts, norms, tris), mat((0.9, 0.6, 0.3))))
+    # a retexture difference, B surfaces flipped and retextured
+    items.append(P.difference(
+        P.tex(P.box((3.2, -3.0, -0.5), (4.8, -1.8, 0.5)), mat((1, 0, 1))),
+        P.tex(P.sphere((3.4, -2.4, -0.4), 0.7), mat((0, 1, 1)))))
+    lights = (P.light((0, 6, -8), (80, 80, 80)),)
+    cam = P.camera((0.3, 0.4, -11.0), (0, 0.2, 0), (0, 1, 0), 55.0)
+    return P.group(items), lights, cam

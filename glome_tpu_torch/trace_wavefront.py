@@ -551,7 +551,10 @@ class WavefrontTracer(Tracer):
         alive, megakernel._run_blocks); the counter
         megakernel.table_packs is the call's builds of the select tables
         (megakernel.pack_tables.calls: one a batch in the eager frame,
-        one a call in the compiled frame)."""
+        one a call in the compiled frame); the counters
+        megakernel.finalize_fused and megakernel.finalize_torch are its
+        intersect batches' finalize calls by the path they took
+        (megakernel.finalize.fused_calls and .torch_calls)."""
         with telemetry.span("wavefront.trace"):
             if recurs is None:
                 recurs = self.config.maxdepth
@@ -570,11 +573,17 @@ class WavefrontTracer(Tracer):
                 tmax = torch.full((N,), INFINITY, dtype=dt, device=o.device)
             self.last_batches = 0
             packs = MK.pack_tables.calls
+            fused, unfused = (MK.finalize.fused_calls,
+                              MK.finalize.torch_calls)
             res = (self._trace_compiled if frame == COMPILED
                    else self._trace_eager)(arrays, o, d, tmax, R, scene_id,
                                            lights)
             telemetry.count("megakernel.table_packs",
                             MK.pack_tables.calls - packs)
+            telemetry.count("megakernel.finalize_fused",
+                            MK.finalize.fused_calls - fused)
+            telemetry.count("megakernel.finalize_torch",
+                            MK.finalize.torch_calls - unfused)
             return res
 
     def _trace_eager(self, arrays, o, d, tmax, R, scene_id, lights):

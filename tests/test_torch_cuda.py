@@ -3,7 +3,8 @@ version, the wrappers' contracts, and K1's and K4's work tallies; the
 recursive Tracer, adaptive AA and a soft gradient step through the
 kernels against the plain set; the compiled frame (graphs.py) against
 the eager frame, an in-place edit read by a replay and a replaced
-tensor captured anew.  Every
+tensor captured anew; the fused finalize (csrc/finalize_hit.cu) against
+the torch finalize, bit for bit, and its dispatch.  Every
 test needs a CUDA device and skips without one.  The card's machine has
 no JAX, so run these without the suite's conftest (which configures
 JAX):
@@ -980,3 +981,240 @@ def test_compiled_frame_captures_a_replaced_tensor(dev):
     again = tracer.trace(arrays, o, d)
     assert tracer.last_frame["captures"] == 0
     assert _frames_equal(again, want)
+
+
+# --- the fused finalize (csrc/finalize_hit.cu) -------------------------------
+
+def _hit_diff(a, b):
+    """{field: lanes that differ} of two Hits, bit for bit (floats
+    compared as their int32 bits), or a note where a field's shape,
+    dtype or strides differ."""
+    out = {}
+    for name in a._fields:
+        x, y = getattr(a, name), getattr(b, name)
+        if (x.shape, x.dtype, x.stride()) != (y.shape, y.dtype, y.stride()):
+            out[name] = (f"{tuple(x.shape)} {x.dtype} {x.stride()} against "
+                         f"{tuple(y.shape)} {y.dtype} {y.stride()}")
+            continue
+        if not x.numel():
+            continue
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        ne = (x != y).reshape(x.shape[0], -1).any(dim=1)
+        if bool(ne.any()):
+            lane = int(ne.nonzero()[0])
+            out[name] = (f"{int(ne.sum())} lanes, first {lane}: "
+                         f"{getattr(a, name)[lane].tolist()} against "
+                         f"{getattr(b, name)[lane].tolist()}")
+    return out
+
+
+class _FusedAgainstTorch:
+    """Runs every fused finalize call outside a capture against
+    _finalize_torch on the same inputs; records (lanes, diff, hits,
+    combos hit, flipped lanes, retextured lanes, object rays moved)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        real = MK._finalize_fused
+
+        def both(compiled, plan, arrays, o, d, t, wid, aux, want_meta):
+            h = real(compiled, plan, arrays, o, d, t, wid, aux, want_meta)
+            if h is None or torch.cuda.is_current_stream_capturing():
+                return h
+            ref = MK._finalize_torch(compiled, plan, arrays, o, d, t, wid,
+                                     aux, want_meta)
+            prim = (wid.long() // 2).clamp(min=0).cpu().numpy()
+            hit = (wid >= 0).cpu().numpy()
+            neg = hit & plan.neg_all[prim]
+            retex = (neg & plan.atex_all[prim] & (aux.cpu().numpy() >= 0)
+                     if aux is not None and want_meta else neg & False)
+            self.calls.append(dict(
+                lanes=o.shape[0], diff=_hit_diff(h, ref), hits=int(hit.sum()),
+                combos=set(plan.cid_all[prim[hit]].tolist()),
+                flipped=int(neg.sum()), retextured=int(retex.sum()),
+                warped=int((h.obj_o != o).any(dim=1).sum())))
+            return h
+        monkeypatch.setattr(MK, "_finalize_fused", both)
+
+    def check(self, plan, n_calls):
+        assert len(self.calls) == n_calls
+        bad = [c for c in self.calls if c["diff"]]
+        assert not bad, bad[:3]
+        assert (set().union(*(c["combos"] for c in self.calls))
+                == set(range(len(plan.combos))))
+
+
+def _torch_finalize_only(monkeypatch):
+    """The parent's finalize: every call takes the torch ops."""
+    monkeypatch.setattr(MK, "_finalize_fused", lambda *a, **k: None)
+
+
+def _render_all(view, arrays, n=2):
+    out = [view.render(arrays, 0.25) for _ in range(n)]
+    torch.cuda.synchronize()
+    return out
+
+
+def _images_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_fused_finalize_on_testscene_levels(dev, monkeypatch):
+    """TestScene at 720x480 depth 3: the fused Hit equals the torch
+    finalize's bit for bit on every lane of every level of the compiled
+    frame's capture frame (its warm-ups run eagerly on the level's own
+    inputs) and of the eager frame, over all 6 combos, the CSG flips,
+    the difference-B retexture, the portal's object rays and the dead
+    lanes; a replay equals them too."""
+    from glome_tpu_torch.graphs import EAGER
+    from glome_tpu_torch.scenes import test_scene
+    solid, lights, cam = test_scene()
+    compiled = T.compile_scene(solid, lights)
+    plan = MK.get_plan(compiled)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned()
+    rec = _FusedAgainstTorch(monkeypatch)
+    compiled_frames = _render_all(
+        T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg), arrays)
+    eager = _render_all(T.Renderer(T.WavefrontTracer(
+        compiled, cfg, frame=EAGER), cam, cfg), arrays, 1)[0]
+    rec.check(plan, 2 * cfg.maxdepth)
+    assert all(c["hits"] for c in rec.calls)
+    assert rec.calls[0]["flipped"]
+    assert sum(c["retextured"] for c in rec.calls) > 0
+    assert sum(c["warped"] for c in rec.calls) > 0
+    assert all(c["lanes"] > c["hits"] for c in rec.calls)
+    assert _images_equal(compiled_frames[0], eager)
+    assert _images_equal(compiled_frames[1], eager)
+
+
+def test_fused_finalize_on_spd_balls(dev, monkeypatch):
+    """SPD balls at size 5 (66,430 spheres through K2, the floor's two
+    triangles through K1) at its 512x512: the fused Hit equals the torch
+    finalize's on every level, and the frame the parent's."""
+    from glome_tpu_torch.graphs import EAGER
+    from glome_tpu_torch.scenes.spd_balls import balls
+    solid, lights, cam = balls(5)
+    compiled = T.compile_scene(solid, lights)
+    plan = MK.get_plan(compiled)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned(xres=512, yres=512)
+    rec = _FusedAgainstTorch(monkeypatch)
+    got = _render_all(T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg),
+                      arrays, 1)[0]
+    eager = _render_all(T.Renderer(T.WavefrontTracer(
+        compiled, cfg, frame=EAGER), cam, cfg), arrays, 1)[0]
+    rec.check(plan, 2 * cfg.maxdepth)
+    _torch_finalize_only(monkeypatch)
+    parent = _render_all(T.Renderer(T.WavefrontTracer(compiled, cfg), cam,
+                                    cfg), arrays, 1)[0]
+    assert _images_equal(got, eager) and _images_equal(got, parent)
+
+
+@pytest.mark.parametrize("layout", ["table", "rows"])
+def test_fused_finalize_on_every_ptype(dev, monkeypatch, layout):
+    """phasescene.ptypes_scene (every FIELDS ptype, plain and under a
+    transform, a shared-vertex mesh, a retexture difference): the fused
+    Hit equals the torch finalize's on the rows of a ray table (the
+    tracer's) and on contiguous (N, 3) rays (mega_intersect's)."""
+    from glome_tpu_torch.scenes.phasescene import ptypes_scene
+    solid, lights, cam = ptypes_scene()
+    compiled = T.compile_scene(solid, lights)
+    plan = MK.get_plan(compiled)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned(xres=320, yres=240)
+    rec = _FusedAgainstTorch(monkeypatch)
+    view = T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg)
+    if layout == "table":
+        _render_all(view, arrays, 1)
+        rec.check(plan, cfg.maxdepth)
+    else:
+        ys, xs = np.mgrid[0:240, 0:320]
+        o, d = view.rays_for_pixels(xs.reshape(-1).astype(np.float32),
+                                    ys.reshape(-1).astype(np.float32), dev)
+        MK.mega_intersect(compiled, arrays, o.contiguous(), d)
+        rec.check(plan, 1)
+    assert sum(c["flipped"] for c in rec.calls) > 0
+    assert sum(c["retextured"] for c in rec.calls) > 0
+
+
+def test_fused_finalize_frames_equal_the_parents(dev, monkeypatch):
+    """TestScene at 720x480: the compiled and eager frames with the fused
+    finalize, still and AA, equal the frames of the torch finalize (the
+    parent's path) bit for bit."""
+    from glome_tpu_torch.graphs import EAGER
+    from glome_tpu_torch.scenes import test_scene
+    solid, lights, cam = test_scene()
+    compiled = T.compile_scene(solid, lights)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned()
+
+    def frames():
+        out = []
+        for frame in (None, EAGER):
+            tracer = (T.WavefrontTracer(compiled, cfg) if frame is None
+                      else T.WavefrontTracer(compiled, cfg, frame=frame))
+            out.append(_render_all(T.Renderer(tracer, cam, cfg), arrays,
+                                   1)[0])
+            aa = T.AARenderer(tracer, cam, cfg)
+            out.append(aa.render(arrays))
+        torch.cuda.synchronize()
+        return out
+    fused = frames()
+    _torch_finalize_only(monkeypatch)
+    parent = frames()
+    for got, want in zip(fused, parent):
+        assert _images_equal(got, want)
+
+
+def test_fused_finalize_counts_every_call(dev):
+    """The frame records' counters: 3 fused finalize calls a still frame
+    and 15 an AA frame, replays included, and no torch call."""
+    from glome_tpu_torch import telemetry as TM
+    from glome_tpu_torch.scenes import test_scene
+    solid, lights, cam = test_scene()
+    compiled = T.compile_scene(solid, lights)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned()
+    tracer = T.WavefrontTracer(compiled, cfg)
+    view, aa = T.Renderer(tracer, cam, cfg), T.AARenderer(tracer, cam, cfg)
+    n0 = len(TM.frames())
+    for _ in range(3):
+        view.render(arrays, 0.5)
+    for _ in range(3):
+        aa.render(arrays)
+    torch.cuda.synchronize()
+    recs = TM.frames()[n0:]
+    assert tracer.last_frame["captures"] == 0
+    assert [f.counts["megakernel.finalize_fused"] for f in recs] == (
+        [cfg.maxdepth] * 3 + [5 * cfg.maxdepth] * 3)
+    assert all(f.counts["megakernel.finalize_torch"] == 0 for f in recs)
+
+
+def test_finalize_takes_torch_ops_where_the_kernel_may_not(dev):
+    """On CUDA tensors the torch ops still serve select=PLAIN and a call
+    that needs a gradient (a scene tensor that requires grad in grad
+    mode); the gradient reaches that tensor as through _finalize_torch."""
+    from glome_tpu_torch.scenes.phasescene import ptypes_scene
+    solid, lights, cam = ptypes_scene()
+    compiled = T.compile_scene(solid, lights)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned(xres=64, yres=48)
+    view = T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg)
+    ys, xs = np.mgrid[0:48, 0:64]
+    o, d = view.rays_for_pixels(xs.reshape(-1).astype(np.float32),
+                                ys.reshape(-1).astype(np.float32), dev)
+    o, d = o.contiguous(), d.contiguous()
+    f0, t0 = MK.finalize.fused_calls, MK.finalize.torch_calls
+    with torch.no_grad():
+        MK.mega_intersect(compiled, arrays, o, d, select=MK.PLAIN)
+        MK.mega_intersect(compiled, arrays, o, d)
+    assert (MK.finalize.fused_calls - f0, MK.finalize.torch_calls - t0) == (
+        1, 1)
+    centre = _sphere_centres(arrays)["center"]
+    centre.requires_grad_(True)
+    h = MK.mega_intersect(compiled, arrays, o, d)
+    assert MK.finalize.torch_calls - t0 == 2
+    (g,) = torch.autograd.grad(h.pos.sum() + h.norm.sum(), centre)
+    assert bool(g.abs().sum() > 0)

@@ -467,12 +467,14 @@ def test_a_new_scene_drops_the_old_scenes_segments():
 
 def test_segments_carry_launch_and_plain_call_counters():
     cs = graphs.counters()
-    assert [a for _f, a in cs] == ["launches"] * 5 + ["calls"] * 6
+    assert [a for _f, a in cs] == (["launches"] * 5 + ["calls"] * 6
+                                   + ["fused_calls", "torch_calls"])
     assert cs[0][0] is MK.mega_select and cs[5][0] is MK.mega_select_plain
-    # the builds of the select tables, which a replay counts too, after
-    # the kernels' own counters
+    # the builds of the select tables and finalize's two paths, which a
+    # replay counts too, after the kernels' own counters
     assert cs[:10] == graphs.kernel_counters()
     assert cs[10][0] is MK.pack_tables
+    assert cs[11][0] is cs[12][0] is MK.finalize
     assert all(isinstance(getattr(f, a), int) for f, a in cs)
 
 
