@@ -1,9 +1,9 @@
 """megakernel (pack, finalize, shading): the share of the finalize calls
 that ran the fused kernel (csrc/finalize_hit.cu): the program's counter
-megakernel.finalize_fused over it plus megakernel.finalize_torch (the
-calls that ran the differentiable torch ops), each summed over the
-traced window, times 100; None where no frame counts them (a program
-without the fused kernel) or no finalize ran."""
+megakernel.finalize_fused (the kernel's launches) over it plus
+megakernel.finalize_torch (the calls that ran the differentiable torch
+ops), each summed over the traced window, times 100; None where no frame
+counts them (a program without the fused kernel) or no finalize ran."""
 
 from benchmark.metrics._spans import count_sum
 

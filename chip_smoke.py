@@ -11,13 +11,16 @@ the hand-written CUDA kernels K1 (csrc/mega_select.cu), K2
 megakernel route, and K4 (csrc/dense_select.cu) and K5
 (csrc/bvh_select.cu) on the pass-per-group route
 (WavefrontTracer(route=intersect.GROUPS), on TestScene and on the 100k
-mesh), and the card microbenchmarks
+mesh), the fused finalize (csrc/finalize_hit.cu: megakernel.finalize's
+Hit in one launch per intersect batch on the megakernel route, a port
+kernel with no Pallas counterpart), and the card microbenchmarks
 M1 (csrc/micro_prims.cu) and M2 (csrc/micro_kwide.cu) through their
 tools' entry points (python -m glome_tpu_torch.tools.micro_prims /
 micro_kwide), and checks them in phases:
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: all seven libraries (K1-K5, M1, M2) from the sources in this
+  2. build: all eight libraries (K1-K5, M1, M2, the fused finalize)
+     from the sources in this
      checkout, one nvcc each, all started together (build seconds, ptxas
      register and spill counts), and the native BVH builder
      (glome_tpu_torch/native/bvh_builder.cpp, g++; its version and build
@@ -30,8 +33,9 @@ micro_kwide), and checks them in phases:
      intersect and fused shadow table at its static width, recorded from
      its capture frame's warm-ups) on every lane, the dead lanes exactly;
   4. TestScene frame: 720x480, depth 3, through the kernels: 6 K1
-     launches, no K2-K5 launch, no plain call, zero overflow, and within
-     the drift canaries of out/testscene_tpu.png;
+     launches and 3 finalize_hit launches, no K2-K5 launch, no plain call
+     and no torch finalize, zero overflow, and within the drift canaries
+     of out/testscene_tpu.png;
   5. TestScene plain-path frame: 180x120 through the plain set
      (megakernel.PLAIN) on the card, against the kernel frame and
      tests/golden/testscene_180x120_cpu.png under the same canaries;
@@ -252,7 +256,8 @@ micro_kwide), and checks them in phases:
      frame.  Gates: every compiled frame equal to the eager frame,
      zero captures after the first frame, and the capture frame's and a
      replay frame's launches as the eager frame's (6 K1; 2 K1 + 1 / 2
-     K2; 2 K1 + 2 K3; 30 K1), no plain call, each under
+     K2; 2 K1 + 2 K3; 30 K1; and one finalize_hit an intersect batch:
+     3, 1, 1, 15), no plain call and no torch finalize, each under
      "compiled_<frame>[_capture]" in launches_by_path.
      Prints each frame's replay and eager ms (medians in turns), the
      capture frame's seconds, captures and host reads per frame, the
@@ -265,9 +270,22 @@ micro_kwide), and checks them in phases:
      version on that call's own static-width inputs, on every lane
      (intersect: hit, t and winner; shadow: the blocked mask), and the
      frame's launches (6 K1 + 6 K2: each level's intersect and shadow
-     batch), counts reset just before it, under "spd_balls5_512" in
-     launches_by_path; then phase 33's gates on the same frame
-     (compiled = eager on every lane, zero captures after the first).
+     batch; 3 finalize_hit), counts reset just before it, under
+     "spd_balls5_512" in launches_by_path; then phase 33's gates on the
+     same frame (compiled = eager on every lane, zero captures after the
+     first).
+ 35. the fused finalize (csrc/finalize_hit.cu) against the torch
+     finalize (megakernel._finalize_torch) on the compiled frame's own
+     finalize inputs: each level's (o, d, t, wid, aux) of the TestScene
+     720x480 depth-3 frame and of the SPD balls size-5 512x512 frame,
+     recorded from the capture frame's warm-ups (static widths, dead
+     lanes included).  Every field of the Hit bit for bit on every lane,
+     and its layouts; the capture frame's and a replay frame's launches,
+     counts reset just before each (3 finalize_hit, no torch finalize),
+     under "finalize_<scene>[_capture]" in launches_by_path; then the
+     kernel's ms on TestScene's level-0 call (CUDA events) against the
+     torch ops' on the same inputs, and its bound: the lanes' bytes (rays,
+     t, wid and aux read once, the Hit written once) over 3.35 TB/s.
 
 Phases 10, 16 and 22 take their profiled frame and per-launch
 host/device split from the same tool (profile_kernels, launch_split).
@@ -288,6 +306,10 @@ biggest lattice group's).
 In the kernels line each M1 and M2 variant is an entry of its own, named
 "micro_prims.<variant>" or "micro_kwide.<variant>": it has its own C
 entry, launch count, time and bound.
+
+The finalize_hit entry counts launches in megakernel.finalize.fused_calls
+(the torch finalize's calls in .torch_calls); it has no plain version
+beside it but the torch ops, whose ms is its "torch_ms".
 
 Prints a JSON line of the kernels, then the nvidia-smi name/power-limit
 line, then last {"ok": true, "device": {...}}.  Any failed phase, a
@@ -457,7 +479,11 @@ def main():
                          "replaces": "glome_tpu/pallas_kernels.py:363"},
         "bvh_select": {"name": "bvh_select", "route": "cuda",
                        "source": "glome_tpu_torch/csrc/bvh_select.cu",
-                       "replaces": "glome_tpu/pallas_kernels.py:558"}}
+                       "replaces": "glome_tpu/pallas_kernels.py:558"},
+        # no Pallas counterpart: it replaces the XLA ops of finalize
+        "finalize_hit": {"name": "finalize_hit", "route": "cuda",
+                         "source": "glome_tpu_torch/csrc/finalize_hit.cu",
+                         "replaces": "glome_tpu/megakernel.py:1542"}}
     # the microbenchmarks: each variant is a kernel of its own (its own C
     # entry, wrapper and launch count), replacing one Pallas body of the
     # tool's (tools/micro_prims.py:65 mk, tools/micro_kwide.py:47 / :138)
@@ -511,21 +537,26 @@ def main():
             v.kernel.launches = 0
         for fn in plain_fns:
             fn.calls = 0
+        MK.finalize.fused_calls = MK.finalize.torch_calls = 0
 
     def read_counts(path):
         """Launch counts since reset_counts, recorded under `path`."""
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in kernel_fns.items()}
         counts.update((k, v.kernel.launches) for k, v in micro_kernels.items())
+        counts["finalize_hit"] = MK.finalize.fused_calls
         for k, c in counts.items():
             entries[k]["launches_by_path"][path] = c
         m1, m2 = (sum(c for k, c in counts.items() if k.startswith(t + "."))
                   for t in micro_tools)
         counts["plain"] = sum(fn.calls for fn in plain_fns)
+        counts["finalize_torch"] = MK.finalize.torch_calls
         print(f"  launches: K1 {counts['mega_select']}, K2 "
               f"{counts['block_select']}, K3 {counts['mesh_block_select']}, "
               f"K4 {counts['dense_select']}, K5 {counts['bvh_select']}, "
-              f"M1 {m1}, M2 {m2}, plain calls {counts['plain']}")
+              f"M1 {m1}, M2 {m2}, finalize_hit {counts['finalize_hit']}, "
+              f"plain calls {counts['plain']}, torch finalize calls "
+              f"{counts['finalize_torch']}")
         return counts
 
     def cuda_ms(fn, reps, warm=1):
@@ -607,6 +638,10 @@ def main():
             entries[name]["ptxas"] = next(
                 f for fn, f in figs.items()
                 if name + "_kernel" in fn and "ILb0E" in fn)
+        figs = kernels.ptxas_figures(kernels.BUILD_INFO[kernels.library_path(
+            "glome_finalize")]["log"])
+        entries["finalize_hit"]["ptxas"] = next(
+            f for fn, f in figs.items() if "finalize_hit_kernel" in fn)
         for path in paths:
             info = kernels.BUILD_INFO[path]
             print(f"  {os.path.relpath(path, ROOT)}: nvcc "
@@ -876,7 +911,9 @@ def main():
                 and counts["mega_select"] == 2 * cfg.maxdepth
                 and all(counts[k] == 0 for k in kernel_fns
                         if k != "mega_select")
-                and counts["plain"] == 0 and ov == 0)
+                and counts["finalize_hit"] == cfg.maxdepth
+                and counts["plain"] == counts["finalize_torch"] == 0
+                and ov == 0)
     phase("4 TestScene frame 720x480 depth 3 through the kernels", p_frame)
 
     # -- 5. the TestScene plain path ----------------------------------------
@@ -2627,14 +2664,15 @@ def main():
         end.synchronize()
         return out, start.elapsed_time(end)
 
-    def compiled_case(name, make, want, reps=3):
+    def compiled_case(name, make, want, fin, reps=3):
         """make(frame) -> (tracer, frame function returning a tuple of
         tensors).  The compiled and the eager frame in turns on the same
         inputs: the capture frame, then compiled, eager, eager, compiled
         ... (reps of each, timed); every compiled frame equal to the eager
         frame on every lane, zero captures after the first, and the
         launches of the capture frame and of one replay frame (counts
-        reset just before each) as `want`, no plain call.  Captures,
+        reset just before each) as `want` and `fin` finalize_hit
+        launches, no plain call and no torch finalize.  Captures,
         replays and host reads per frame are the tracer's GraphCache
         totals over the frame (the AA frame traces five times)."""
         ctracer, cframe = make(COMPILED)
@@ -2701,7 +2739,9 @@ def main():
         ok = (all(same) and not any(captures)
               and all(c[k] == want.get(k, 0) for k in kernel_fns
                       for c in (ccounts, counts))
-              and ccounts["plain"] == counts["plain"] == 0)
+              and ccounts["finalize_hit"] == counts["finalize_hit"] == fin
+              and ccounts["plain"] == counts["plain"] == 0
+              and ccounts["finalize_torch"] == counts["finalize_torch"] == 0)
         del ctracer, etracer
         torch.cuda.empty_cache()
         return ok
@@ -2730,10 +2770,10 @@ def main():
 
         ok &= compiled_case("testscene_720x480_render",
                             render_case(compiled, arrays, cam, cfg),
-                            {"mega_select": 2 * cfg.maxdepth})
+                            {"mega_select": 2 * cfg.maxdepth}, cfg.maxdepth)
         ok &= compiled_case("testscene_720x480_bench",
                             bench_case(compiled, arrays, cam, cfg),
-                            {"mega_select": 2 * cfg.maxdepth})
+                            {"mega_select": 2 * cfg.maxdepth}, cfg.maxdepth)
         for n_tris, cast, want in (
                 (100_000, False, {"mega_select": 2, "block_select": 1}),
                 (100_000, True, {"mega_select": 2, "block_select": 2}),
@@ -2741,14 +2781,15 @@ def main():
             cc, garrs, _mp, c, _grp = mesh(n_tris, cast)
             ok &= compiled_case(
                 f"mesh{n_tris // 1000}k_1080p_cast{int(cast)}_bench",
-                bench_case(cc, garrs, c, mcfg), want)
+                bench_case(cc, garrs, c, mcfg), want, mcfg.maxdepth)
 
         def aa_case(frame):
             a = T.AARenderer(T.WavefrontTracer(compiled, cfg, frame=frame),
                              cam, cfg)
             return a.tracer, lambda: a.render(arrays)
         ok &= compiled_case("aa_testscene_720x480", aa_case,
-                            {"mega_select": 5 * 2 * cfg.maxdepth})
+                            {"mega_select": 5 * 2 * cfg.maxdepth},
+                            5 * cfg.maxdepth)
         return ok
     phase("33 compiled frame: the wavefront frame captured as CUDA graphs "
           "and replayed, against the eager frame", p_compiled)
@@ -2786,15 +2827,133 @@ def main():
         ok &= check_recorded("spd_balls5 compiled frame", log, True)
         ok &= all(cn[k] == want.get(k, 0) for k in kernel_fns
                   for cn in (ccounts, counts))
+        ok &= (ccounts["finalize_hit"] == counts["finalize_hit"]
+               == bcfg.maxdepth)
         ok &= ccounts["plain"] == counts["plain"] == 0
+        ok &= ccounts["finalize_torch"] == counts["finalize_torch"] == 0
         del renderer, log
 
         def make(frame):
             r = T.Renderer(T.WavefrontTracer(bc, bcfg, frame=frame), c, bcfg)
             return r.tracer, lambda: r.render(barrs, 0.25)
-        return compiled_case("spd_balls5_512x512_render", make, want) and ok
+        return compiled_case("spd_balls5_512x512_render", make, want,
+                             bcfg.maxdepth) and ok
     phase("34 SPD balls size 5 512x512 depth 3: K1 and K2 on the compiled "
           "frame", p_balls)
+
+    # -- 35. the fused finalize against the torch finalize -------------------
+    class FinalizeTap:
+        """megakernel.finalize where the path looks it up: records the
+        inputs of each call made outside a capture (the capture frame's
+        warm-ups) and calls finalize; its counters are finalize's."""
+
+        def __init__(self, fn, log):
+            self.__dict__.update(fn=fn, log=log)
+
+        def __call__(self, compiled, plan, arrays, o, d, t, wid, aux=None,
+                     want_meta=True, select=MK.KERNELS):
+            if not torch.cuda.is_current_stream_capturing():
+                self.log.append((compiled, plan, arrays) + tuple(
+                    None if a is None else a.clone()
+                    for a in (o, d, t, wid, aux)) + (want_meta,))
+            return self.fn(compiled, plan, arrays, o, d, t, wid, aux=aux,
+                           want_meta=want_meta, select=select)
+
+        def __getattr__(self, k):
+            return getattr(self.__dict__["fn"], k)
+
+        def __setattr__(self, k, v):
+            setattr(self.fn, k, v)
+
+    def hit_diff(a, b):
+        """{field: lanes that differ, or its layouts} of two Hits, floats
+        compared as their bits."""
+        bad = {}
+        for name in a._fields:
+            x, y = getattr(a, name), getattr(b, name)
+            if (x.shape, x.dtype, x.stride()) != (y.shape, y.dtype,
+                                                  y.stride()):
+                bad[name] = (f"{tuple(x.shape)} {x.dtype} {x.stride()} "
+                             f"against {tuple(y.shape)} {y.dtype} "
+                             f"{y.stride()}")
+                continue
+            if not x.numel():
+                continue
+            if x.dtype == torch.float32:
+                x, y = x.view(torch.int32), y.view(torch.int32)
+            ne = (x != y).reshape(x.shape[0], -1).any(dim=1)
+            if bool(ne.any()):
+                bad[name] = int(ne.sum())
+        return bad
+
+    def p_finalize():
+        from glome_tpu_torch.scenes.spd_balls import balls
+        ok = True
+        bsolid, blights, bcam = balls(5)
+        bc = T.compile_scene(bsolid, blights)
+        bcfg = T.RenderConfig(xres=512, yres=512, maxdepth=3,
+                              background=(0.078, 0.361, 0.753))
+        cases = (("testscene", compiled, arrays, cam, cfg),
+                 ("spd_balls5", bc, T.to_torch(bc.arrays(), dev), bcam,
+                  bcfg))
+        l0 = None
+        for name, cc, garrs, c, rcfg in cases:
+            renderer = T.Renderer(T.WavefrontTracer(cc, rcfg), c, rcfg)
+            log = []
+            real = MK.finalize
+            MK.finalize = FinalizeTap(real, log)
+            try:
+                reset_counts()
+                renderer.render(garrs)
+                ccounts = read_counts(f"finalize_{name}_capture")
+            finally:
+                MK.finalize = real
+            reset_counts()
+            renderer.render(garrs)
+            counts = read_counts(f"finalize_{name}")
+            ok &= all(cn["finalize_hit"] == rcfg.maxdepth
+                      and cn["finalize_torch"] == 0
+                      for cn in (ccounts, counts))
+            ok &= len(log) == rcfg.maxdepth
+            for i, args in enumerate(log):
+                o, wid = args[3], args[6]
+                fused = MK._finalize_fused(*args)
+                ref = MK._finalize_torch(*args)
+                torch.cuda.synchronize()
+                bad = hit_diff(fused, ref)
+                hits = int((wid >= 0).sum())
+                print(f"  {name} level {i}: {o.shape[0]} lanes, {hits} hits, "
+                      f"rays "
+                      f"{'row-major' if MK._fused_layout(o) else 'table rows'}"
+                      f"; fused Hit = torch Hit bit for bit on every lane "
+                      f"and field: {not bad} {bad or ''}")
+                ok &= not bad and (i > 0 or hits > 0)
+            if name == "testscene":
+                l0 = log[0]
+            del renderer, log
+        # the kernel's time and bound on TestScene's level-0 call
+        o = l0[3]
+        n = o.shape[0]
+        kms = cuda_ms(lambda: MK._finalize_fused(*l0), 20)
+        tms = cuda_ms(lambda: MK._finalize_torch(*l0), 5)
+        plan = l0[1]
+        warp = any(tr and w for _p, tr, _g, w in plan.combos)
+        retex = l0[7] is not None and bool(plan.atex_all.any())
+        # read once: o, d, t, wid (and aux); written once: t, hit, pos,
+        # norm, tex, tag, serial (and the object rays)
+        lane_bytes = (24 + 4 + 4 + 4 * retex
+                      + 4 + 1 + 12 + 12 + 16 + 16 + 4 + 24 * warp)
+        bound = n * lane_bytes / HBM_BPS * 1e3
+        entries["finalize_hit"].update(
+            ms=kms, torch_ms=tms, rays=n, bytes_per_lane=lane_bytes,
+            bound_ms=bound, bound_by="bytes")
+        print(f"  [{smi_line}] TestScene level 0, {n} lanes: finalize_hit "
+              f"{kms:.4f} ms, torch ops {tms:.4f} ms ({tms / kms:.1f}x); "
+              f"bound {1e3 * bound:.2f} us ({lane_bytes} B a lane over "
+              f"3.35 TB/s), {100 * bound / kms:.1f}% of it")
+        return ok
+    phase("35 fused finalize against the torch finalize on the compiled "
+          "frame's own inputs", p_finalize)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):
@@ -2809,6 +2968,7 @@ def main():
                        ("mesh_block_select", "mesh250k_1080p_cast1"),
                        ("dense_select", "testscene_720x480_groups"),
                        ("bvh_select", "testscene_720x480_groups"),
+                       ("finalize_hit", "testscene_720x480_depth3"),
                        *((k, k.split(".")[0] + "_T256")
                          for k in micro_kernels)):
         entries[name]["launches"] = entries[name]["launches_by_path"][path]

@@ -25,6 +25,13 @@
 //     fma(a1, b2, -(a2 * b1));
 //   - torch.minimum / maximum / clamp propagate NaN, where fminf / fmaxf
 //     drop it.
+//
+// These orders were read off torch 2.11.0+cu128 on an H100; another torch
+// may reduce otherwise, and tests/test_torch_cuda.py's fused-finalize
+// tests then fail.  The per-primitive hit math here is the third copy of
+// the primitives beside geom.py (the torch finalize's, which this one
+// follows) and prims.cuh (the select kernels' t): a change to one changes
+// the others.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -556,7 +563,8 @@ extern "C" int glome_finalize_hit(
     float* out_norm, int norm_row, float* out_oo, float* out_od,
     int* out_tex, int* out_tag, int* out_ser, void* stream) {
   if (n <= 0) return 0;
-  if (n_groups < 1 || n_prims < 1) return (int)cudaErrorInvalidValue;
+  // a scene without prims has no group rows, and every lane missed
+  if (n_groups < 0 || n_prims < 0) return (int)cudaErrorInvalidValue;
   FinArgs a{o,      o0,      o1,      d,       d0,       d1,
             ray_row, t,      wid,     aux,     n,        groups,
             n_groups, meta,  ltab,    n_prims, retex,    out_t,

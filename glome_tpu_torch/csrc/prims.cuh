@@ -4,6 +4,9 @@
 // versions in glome_tpu_torch/megakernel.py: same formulas, same INF
 // (1e6) for absent crossings, same 1e18 slab sentinels.  Parameters are
 // one row of the PF table, in glome_tpu_torch.megakernel.FIELDS order.
+// csrc/finalize_hit.cu evaluates the winners' entry/exit distances and
+// normals again, after geom.py's *_hits2: a change to a primitive here
+// changes geom.py and finalize_hit.cu with it.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -19,6 +19,12 @@ Conventions: every input broadcasts; rays are (..., 3) float tensors; a
 miss is t = +INF.  All control flow is torch.where.  Division hazards
 are guarded, and square roots are floored (round 5), so no NaN leaks
 through a select into a gradient.
+
+Two copies follow these functions on the card: csrc/finalize_hit.cu
+(megakernel.finalize's kernel) evaluates the *_hits2 in the same order
+of operations, to give the same Hit bit for bit, and csrc/prims.cuh
+computes the select kernels' distances.  A change to a primitive here
+changes both.
 """
 
 from __future__ import annotations

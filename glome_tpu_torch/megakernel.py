@@ -1508,19 +1508,16 @@ def finalize(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux=None,
 
     A call on CUDA tensors through the kernels (`select` KERNELS) that
     needs no gradient (graphs.needs_grad) runs csrc/finalize_hit.cu, one
-    launch with the same result bit for bit (_finalize_fused); every
-    other call, and one whose tensors the kernel does not read
-    (_fused_layout, _finalize_groups), runs the differentiable torch ops
-    (_finalize_torch).  finalize.fused_calls and .torch_calls count the
-    two."""
+    launch with the same result bit for bit (_finalize_fused); a call on
+    the CPU, through the plain versions (PLAIN) or that needs a gradient
+    runs the differentiable torch ops (_finalize_torch).
+    finalize.fused_calls counts the kernel's launches, .torch_calls the
+    torch calls."""
     from .graphs import needs_grad
     if (select == KERNELS and o.device.type == "cuda"
             and not needs_grad(arrays, (o, d, t))):
-        h = _finalize_fused(compiled, plan, arrays, o, d, t, wid, aux,
-                            want_meta)
-        if h is not None:
-            finalize.fused_calls += 1
-            return h
+        return _finalize_fused(compiled, plan, arrays, o, d, t, wid, aux,
+                               want_meta)
     finalize.torch_calls += 1
     return _finalize_torch(compiled, plan, arrays, o, d, t, wid, aux,
                            want_meta)
@@ -1708,9 +1705,9 @@ FIN_GW = 6 + 4 * FIN_FIELDS
 
 
 def _fused_layout(x):
-    """The layout torch's ops see on an (N, 3) ray tensor: True
+    """The layout torch's ops see on an (N, 3) float32 ray tensor: True
     row-major (contiguous rows), False column-major (the rows of an
-    (8, N) ray table), None any other (the kernel does not read it)."""
+    (8, N) ray table), None any other (_finalize_fused copies it)."""
     if x.dim() != 2 or x.shape[1] != 3 or x.dtype != torch.float32:
         return None
     if x.stride(1) == 1 and (x.stride(0) == 3 or x.shape[0] < 2):
@@ -1734,13 +1731,15 @@ def _hit_layout(plan: MegaPlan, ray_row: bool):
 
 def _finalize_groups(compiled, plan: MegaPlan, arrays, device):
     """The fused finalize's group descriptor, (G, FIN_GW) int64 on
-    `device` (vec.const: made once per set of scene tensors), or None
-    where a group's parameters are not float32 rows the kernel reads in
-    place."""
+    `device`: one row a group with prims, pointing at its parameter rows
+    in place.  Made once per set of scene tensors (by their addresses)
+    and kept on the plan beside _meta_tables: a captured frame replays
+    the descriptor it read.  Raises ValueError where a group's rows are
+    not float32, contiguous and on `device`, as to_torch makes them."""
     from .compile import _mesh_index
     warp = {(si, gi) for _p, tr, glist, w in plan.combos if tr and w
             for si, gi in glist}
-    rows = []
+    groups = []
     for si, sc in enumerate(compiled.scenes):
         for gi, g in enumerate(sc.groups):
             if g.size == 0:
@@ -1752,20 +1751,32 @@ def _finalize_groups(compiled, plan: MegaPlan, arrays, device):
                     fields.append((ga[name], None, 0, wd))
                     continue
                 normals = name[0] == "n"
-                src = ga["norms" if normals else "verts"]
-                index = _mesh_index(g, "tri_n" if normals else "tri",
-                                    device)
-                fields.append((src, index, int(name[1]) - 1, 3))
+                fields.append((ga["norms" if normals else "verts"],
+                               _mesh_index(g, "tri_n" if normals else "tri",
+                                           device),
+                               int(name[1]) - 1, 3))
             m_inv = ga["m_inv"] if g.m_inv is not None else None
-            tensors = [f[0] for f in fields] + (
+            rows = [x for x, _ix, _c, _w in fields] + (
                 [m_inv] if m_inv is not None else [])
             if any(x.dtype != torch.float32 or not x.is_contiguous()
-                   or x.device != device for x in tensors):
-                return None
-            if any(ix is not None and (ix.dtype != torch.int32
-                                       or not ix.is_contiguous())
-                   for _x, ix, _c, _w in fields):
-                return None
+                   or x.device != device for x in rows) or any(
+                       ix is not None and ix.dtype != torch.int32
+                       for _x, ix, _c, _w in fields):
+                raise ValueError(
+                    f"the fused finalize reads group {gi} of scene {si} "
+                    f"({g.ptype}) in place: its rows must be float32, "
+                    f"contiguous and on {device} (to_torch makes them so); "
+                    f"or pass select=PLAIN")
+            groups.append((si, gi, g, fields, m_inv))
+    key = (str(device), tuple(
+        p for _si, _gi, _g, fields, m_inv in groups
+        for p in [x.data_ptr() for x, _ix, _c, _w in fields]
+        + [ix.data_ptr() for _x, ix, _c, _w in fields if ix is not None]
+        + ([m_inv.data_ptr()] if m_inv is not None else [])))
+    cache = plan.__dict__.setdefault("_dev_fin_groups", {})
+    if key not in cache:
+        rows = []
+        for si, gi, g, fields, m_inv in groups:
             row = [plan.prim_base[(si, gi)][0], len(fields),
                    PTYPE_CODE[g.ptype], int(m_inv is not None),
                    int((si, gi) in warp),
@@ -1774,9 +1785,10 @@ def _finalize_groups(compiled, plan: MegaPlan, arrays, device):
                 row += [x.data_ptr(), 0 if ix is None else ix.data_ptr(),
                         col, wd]
             rows.append(row + [0] * (FIN_GW - len(row)))
-    if not rows:
-        return None
-    return const(np.asarray(rows, dtype=np.int64), torch.int64, device)
+        cache[key] = torch.as_tensor(
+            np.asarray(rows, dtype=np.int64).reshape(-1, FIN_GW),
+            device=device)
+    return cache[key]
 
 
 def _vec3_out(n, row, device):
@@ -1789,20 +1801,24 @@ def _vec3_out(n, row, device):
 def _finalize_fused(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux,
                     want_meta):
     """finalize's Hit from csrc/finalize_hit.cu: one launch on the current
-    stream, no host read, so a captured segment replays it.  Returns None
-    where the kernel does not read the call's tensors: rays of another
-    layout than _fused_layout's two, or a group that _finalize_groups
-    refuses."""
+    stream, no host read, so a captured segment replays it; each launch
+    adds one to finalize.fused_calls.  The kernel reads float32 rays as
+    contiguous (N, 3) rows or as the rows of an (8, N) ray table
+    (_fused_layout); rays of another layout or dtype (an expanded origin,
+    float64) are copied to contiguous float32 rows first, as the select
+    kernels read them.  Where no combo warps, obj_o / obj_d are the
+    caller's rays, as in the torch Hit."""
     from .compile import TEX_DEPTH, TAG_DEPTH
     from .intersect import Hit
     from . import kernels
+    rays = (o, d)
     ray_row = _fused_layout(o)
     if ray_row is None or _fused_layout(d) is not ray_row:
-        return None
+        o = o.to(torch.float32).contiguous()
+        d = d.to(torch.float32).contiguous()
+        ray_row = True
     dev = o.device
     groups = _finalize_groups(compiled, plan, arrays, dev)
-    if groups is None:
-        return None
     metaf, ltab = _meta_tables(plan, dev)
     n = o.shape[0]
     t = t.to(torch.float32).contiguous()
@@ -1818,7 +1834,7 @@ def _finalize_fused(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux,
     pos = _vec3_out(n, pos_row, dev)
     norm = _vec3_out(n, norm_row, dev)
     obj_o, obj_d = ((torch.empty((n, 3), **f32), torch.empty((n, 3), **f32))
-                    if warp else (o, d))
+                    if warp else rays)
     tex = torch.empty((n, TEX_DEPTH), **i32)
     tag = torch.empty((n, TAG_DEPTH), **i32)
     ser = torch.empty(n, **i32)
@@ -1837,6 +1853,7 @@ def _finalize_fused(compiled, plan: MegaPlan, arrays, o, d, t, wid, aux,
                 obj_o.data_ptr() if warp else None,
                 obj_d.data_ptr() if warp else None, tex.data_ptr(),
                 tag.data_ptr(), ser.data_ptr(), ctypes.c_void_p(stream))
+        finalize.fused_calls += 1
         kernels.check_launch(lib, err, "finalize_hit")
     return Hit(t=out_t, hit=hit, pos=pos, norm=norm, obj_o=obj_o,
                obj_d=obj_d, tex_stack=tex, tag_stack=tag, prim_serial=ser)

@@ -553,8 +553,9 @@ class WavefrontTracer(Tracer):
         (megakernel.pack_tables.calls: one a batch in the eager frame,
         one a call in the compiled frame); the counters
         megakernel.finalize_fused and megakernel.finalize_torch are its
-        intersect batches' finalize calls by the path they took
-        (megakernel.finalize.fused_calls and .torch_calls)."""
+        intersect batches' launches of the fused finalize and calls of
+        the torch finalize (megakernel.finalize.fused_calls and
+        .torch_calls)."""
         with telemetry.span("wavefront.trace"):
             if recurs is None:
                 recurs = self.config.maxdepth

@@ -4,7 +4,9 @@ recursive Tracer, adaptive AA and a soft gradient step through the
 kernels against the plain set; the compiled frame (graphs.py) against
 the eager frame, an in-place edit read by a replay and a replaced
 tensor captured anew; the fused finalize (csrc/finalize_hit.cu) against
-the torch finalize, bit for bit, and its dispatch.  Every
+the torch finalize, bit for bit, and its dispatch (the kernel follows the
+reduction orders of torch 2.11.0+cu128's CUDA ops, read off an H100:
+another torch may round otherwise, and these tests then fail).  Every
 test needs a CUDA device and skips without one.  The card's machine has
 no JAX, so run these without the suite's conftest (which configures
 JAX):
@@ -121,6 +123,66 @@ def test_kernel_walks_a_deep_tree(dev, shadow):
     assert 0 < int((wk >= 0).sum()) < n
     if not shadow:
         assert torch.equal(tk, tp) and torch.equal(wk, wp)
+
+
+
+def test_kernel_misses_cones_outside_their_cull_boxes(dev):
+    """A known defect of K1, pinned.  A cone's cull box (prim_aabb, and
+    accel.group_bounds for the tree) takes the radius at z = 0 for the
+    whole clip range; a cone clipped below z = 0 is wider there, and K1
+    may cull what lies outside the box, which its plain version (no
+    cull) keeps.  On phasescene.ptypes_scene, whose two cones are clipped at
+    z = -0.5, K1 and the plain version differ only on primary rays whose
+    plain winner is a cone hit outside its padded cull box, where K1
+    finds something farther or nothing; on every other lane they agree
+    bit for bit.  Once the box covers the cone this test fails: then hold
+    K1 to its plain version on every lane here."""
+    from glome_tpu_torch.compile import group_device_params
+    from glome_tpu_torch.scenes.phasescene import ptypes_scene
+    solid, lights, cam = ptypes_scene()
+    compiled = T.compile_scene(solid, lights)
+    plan = MK.get_plan(compiled)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned(xres=64, yres=48)
+    ys, xs = np.mgrid[0:48, 0:64]
+    o, d = T.Renderer(None, cam, cfg).rays_for_pixels(
+        xs.reshape(-1).astype(np.float32), ys.reshape(-1).astype(np.float32),
+        dev)
+    n = o.shape[0]
+    rays = MK._ray_table(o, d, torch.full((n,), T.INFINITY, device=dev),
+                         torch.zeros(n, dtype=torch.int32, device=dev))
+    tabs = MK.pack_tables(plan, compiled, arrays)
+    tk, wk, ak = (x.cpu().numpy() for x in MK.mega_select(tabs, rays, False))
+    tp, wp, ap = (x.cpu().numpy()
+                  for x in MK.mega_select_plain(tabs, rays, False))
+    # the padded cull box of every cone prim, by global prim
+    boxes, clip1 = {}, []
+    for (si, gi), (base, size) in plan.prim_base.items():
+        g = compiled.scenes[si].groups[gi]
+        if g.ptype != "cone":
+            continue
+        clip1.append(float(np.min(g.params["clip1"])))
+        ga = group_device_params(g, arrays["scenes"][si][gi])
+        box = MK.padded_prim_aabb(
+            "cone", {k: v for k, v in ga.items()
+                     if k not in ("m_inv", "m_fwd")}, ga.get("m_fwd"))
+        for k in range(size):
+            boxes[base + k] = box[k].cpu().numpy()
+    assert min(clip1) < 0
+    rays_np = rays.cpu().numpy()
+    differ = np.flatnonzero((tk != tp) | (wk != wp) | (ak != ap))
+    report = []
+    for i in differ:
+        prim = int(wp[i]) // 2
+        box = boxes.get(prim) if wp[i] >= 0 else None
+        hit = rays_np[0:3, i] + rays_np[3:6, i] * tp[i]
+        outside = box is not None and bool(
+            (hit < box[:3]).any() or (hit > box[3:]).any())
+        report.append((int(i), int(wk[i]), float(tk[i]), int(wp[i]),
+                       float(tp[i]), outside))
+    assert report, "K1 now equals its plain version here: see the docstring"
+    assert all(out and t_k > t_p for _i, _wk, t_k, _wp, t_p, out in report), \
+        report
 
 
 def test_launch_count(dev, tables):
@@ -1020,7 +1082,7 @@ class _FusedAgainstTorch:
 
         def both(compiled, plan, arrays, o, d, t, wid, aux, want_meta):
             h = real(compiled, plan, arrays, o, d, t, wid, aux, want_meta)
-            if h is None or torch.cuda.is_current_stream_capturing():
+            if torch.cuda.is_current_stream_capturing():
                 return h
             ref = MK._finalize_torch(compiled, plan, arrays, o, d, t, wid,
                                      aux, want_meta)
@@ -1047,7 +1109,7 @@ class _FusedAgainstTorch:
 
 def _torch_finalize_only(monkeypatch):
     """The parent's finalize: every call takes the torch ops."""
-    monkeypatch.setattr(MK, "_finalize_fused", lambda *a, **k: None)
+    monkeypatch.setattr(MK, "_finalize_fused", MK._finalize_torch)
 
 
 def _render_all(view, arrays, n=2):
@@ -1117,7 +1179,8 @@ def test_fused_finalize_on_every_ptype(dev, monkeypatch, layout):
     """phasescene.ptypes_scene (every FIELDS ptype, plain and under a
     transform, a shared-vertex mesh, a retexture difference): the fused
     Hit equals the torch finalize's on the rows of a ray table (the
-    tracer's) and on contiguous (N, 3) rays (mega_intersect's)."""
+    tracer's) and on Renderer.rays_for_pixels' own rays (mega_intersect's:
+    an expanded origin, which the kernel reads as a contiguous copy)."""
     from glome_tpu_torch.scenes.phasescene import ptypes_scene
     solid, lights, cam = ptypes_scene()
     compiled = T.compile_scene(solid, lights)
@@ -1133,7 +1196,8 @@ def test_fused_finalize_on_every_ptype(dev, monkeypatch, layout):
         ys, xs = np.mgrid[0:240, 0:320]
         o, d = view.rays_for_pixels(xs.reshape(-1).astype(np.float32),
                                     ys.reshape(-1).astype(np.float32), dev)
-        MK.mega_intersect(compiled, arrays, o.contiguous(), d)
+        assert o.stride(0) == 0
+        MK.mega_intersect(compiled, arrays, o, d)
         rec.check(plan, 1)
     assert sum(c["flipped"] for c in rec.calls) > 0
     assert sum(c["retextured"] for c in rec.calls) > 0
@@ -1195,7 +1259,9 @@ def test_fused_finalize_counts_every_call(dev):
 def test_finalize_takes_torch_ops_where_the_kernel_may_not(dev):
     """On CUDA tensors the torch ops still serve select=PLAIN and a call
     that needs a gradient (a scene tensor that requires grad in grad
-    mode); the gradient reaches that tensor as through _finalize_torch."""
+    mode); the gradient reaches that tensor as through _finalize_torch.
+    Any other call launches the kernel, on rays_for_pixels' expanded
+    origin too."""
     from glome_tpu_torch.scenes.phasescene import ptypes_scene
     solid, lights, cam = ptypes_scene()
     compiled = T.compile_scene(solid, lights)
@@ -1205,7 +1271,6 @@ def test_finalize_takes_torch_ops_where_the_kernel_may_not(dev):
     ys, xs = np.mgrid[0:48, 0:64]
     o, d = view.rays_for_pixels(xs.reshape(-1).astype(np.float32),
                                 ys.reshape(-1).astype(np.float32), dev)
-    o, d = o.contiguous(), d.contiguous()
     f0, t0 = MK.finalize.fused_calls, MK.finalize.torch_calls
     with torch.no_grad():
         MK.mega_intersect(compiled, arrays, o, d, select=MK.PLAIN)
@@ -1218,3 +1283,33 @@ def test_finalize_takes_torch_ops_where_the_kernel_may_not(dev):
     assert MK.finalize.torch_calls - t0 == 2
     (g,) = torch.autograd.grad(h.pos.sum() + h.norm.sum(), centre)
     assert bool(g.abs().sum() > 0)
+
+
+def test_fused_finalize_refuses_rows_it_cannot_read(dev):
+    """A group whose rows are not float32 in place stops the kernels'
+    finalize with an error that names it; no other ops stand in."""
+    from glome_tpu_torch.scenes.phasescene import ptypes_scene
+    solid, lights, cam = ptypes_scene()
+    compiled = T.compile_scene(solid, lights)
+    plan = MK.get_plan(compiled)
+    arrays = T.to_torch(compiled.arrays(), dev)
+    cfg = T.RenderConfig.tuned(xres=32, yres=24)
+    view = T.Renderer(None, cam, cfg)
+    ys, xs = np.mgrid[0:24, 0:32]
+    o, d = view.rays_for_pixels(xs.reshape(-1).astype(np.float32),
+                                ys.reshape(-1).astype(np.float32), dev)
+    n = o.shape[0]
+    with torch.no_grad():
+        t, wid, aux = MK._select_all(
+            compiled, plan, arrays,
+            MK._ray_table(o, d, torch.full((n,), T.INFINITY, device=dev),
+                          torch.zeros(n, dtype=torch.int32, device=dev)),
+            False, MK.KERNELS)
+        scenes = [[dict(g) for g in sc] for sc in arrays["scenes"]]
+        ga = _sphere_centres({**arrays, "scenes": scenes})
+        ga["center"] = ga["center"].double()
+        f0, t0 = MK.finalize.fused_calls, MK.finalize.torch_calls
+        with pytest.raises(ValueError, match="float32"):
+            MK.finalize(compiled, plan, {**arrays, "scenes": scenes}, o, d,
+                        t, wid, aux)
+    assert (MK.finalize.fused_calls, MK.finalize.torch_calls) == (f0, t0)

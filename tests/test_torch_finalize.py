@@ -15,7 +15,10 @@ torch ops (_finalize_torch) everywhere else.  Here, without a card:
   three classes of ray tensor;
 - the group descriptor (_finalize_groups): each group's first prim,
   fields, transform and mesh index, pointing at the scene tensors in
-  place, and no descriptor where a group's rows are not float32.
+  place, made once per set of tensors, and an error where a group's
+  rows are not float32;
+- the fused wrapper on zero lanes: the torch Hit's shapes and dtypes,
+  rays of another dtype read as float32, and no launch counted.
 
 The fused kernel against the torch ops, bit for bit, is in
 test_torch_cuda.py.
@@ -200,7 +203,8 @@ def test_finalize_groups_point_at_the_scene_tensors(ptypes):
     """One descriptor row a group with prims: its first global prim,
     field count, ptype code, transform and warp flags, m_inv and each
     field's rows in place (a mesh's shared vertex or normal table with
-    its int32 index and column); none where a group's rows are float64."""
+    its int32 index and column); a ValueError where a group's rows are
+    float64."""
     compiled, arrays, _cam = ptypes
     plan = MK.get_plan(compiled)
     desc = MK._finalize_groups(compiled, plan, arrays, torch.device("cpu"))
@@ -237,5 +241,48 @@ def test_finalize_groups_point_at_the_scene_tensors(ptypes):
     arrays64 = {**arrays, "scenes": [[dict(g) for g in arrays["scenes"][0]]]}
     next(g for g in arrays64["scenes"][0] if "center" in g)["center"] = (
         ga["center"].double())
-    assert MK._finalize_groups(compiled, plan, arrays64,
-                               torch.device("cpu")) is None
+    with pytest.raises(ValueError, match="float32"):
+        MK._finalize_groups(compiled, plan, arrays64, torch.device("cpu"))
+
+
+def test_finalize_groups_are_made_once_per_set_of_tensors(ptypes):
+    """The descriptor is kept on the plan: the same tensor for the same
+    scene tensors, a new one pointing at a replaced tensor, and the first
+    kept for a frame that still replays it."""
+    compiled, arrays, _cam = ptypes
+    plan = MK.get_plan(compiled)
+    cpu = torch.device("cpu")
+    first = MK._finalize_groups(compiled, plan, arrays, cpu)
+    assert MK._finalize_groups(compiled, plan, arrays, cpu) is first
+    scenes = [[dict(g) for g in sc] for sc in arrays["scenes"]]
+    ga = next(g for g in scenes[0] if "center" in g)
+    ga["center"] = ga["center"].clone()
+    other = MK._finalize_groups(compiled, plan, {**arrays, "scenes": scenes},
+                                cpu)
+    assert other is not first
+    assert ga["center"].data_ptr() in other.flatten().tolist()
+    assert ga["center"].data_ptr() not in first.flatten().tolist()
+    assert MK._finalize_groups(compiled, plan, arrays, cpu) is first
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fused_finalize_on_no_lanes(ptypes, dtype):
+    """_finalize_fused on zero lanes launches nothing and counts nothing,
+    and its Hit has the torch finalize's shapes and dtypes; float64 rays
+    are read as float32 rows, as the select kernels read them, and are
+    the Hit's object rays where no combo warps."""
+    compiled, arrays, _cam = ptypes
+    plan = MK.get_plan(compiled)
+    o = torch.zeros((0, 3), dtype=dtype)
+    t = torch.zeros(0)
+    wid = torch.zeros(0, dtype=torch.int32)
+    f0 = MK.finalize.fused_calls
+    h = MK._finalize_fused(compiled, plan, arrays, o, o.clone(), t, wid,
+                           wid.clone(), True)
+    want = MK._finalize_torch(compiled, plan, arrays,
+                              o.to(torch.float32), o.to(torch.float32), t,
+                              wid, wid.clone())
+    assert MK.finalize.fused_calls == f0
+    assert h.obj_o is o
+    for x, y in zip(h[:4] + h[6:], want[:4] + want[6:]):
+        assert (x.shape, x.dtype) == (y.shape, y.dtype)
