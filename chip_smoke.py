@@ -286,6 +286,22 @@ micro_kwide), and checks them in phases:
      kernel's ms on TestScene's level-0 call (CUDA events) against the
      torch ops' on the same inputs, and its bound: the lanes' bytes (rays,
      t, wid and aux read once, the Hit written once) over 3.35 TB/s.
+ 36. SPD tetra at tetra.c's SizeFactor 9 (scenes/spd_tetra.tetra(8):
+     262,144 flat triangles in one group, which the plan routes to K3,
+     K1 left with no primitive), 512x512 depth 3 through Renderer.render
+     on the compiled frame, the benchmark's spd-tetra-262k-still frame:
+     plan.external == [(0, 0)] and no K2 group; every K1 and K3 call of
+     its capture frame held against its plain version on that call's own
+     static-width inputs, on every lane, and every finalize call's fused
+     Hit against megakernel._finalize_torch on the same inputs, bit for
+     bit (the flat-triangle rows of an external group read in place);
+     the capture frame's and a replay frame's launches, counts reset
+     just before each (6 K1 + 6 K3: each level's intersect and shadow
+     batch; 3 finalize_hit, no plain call, no torch finalize), under
+     "spd_tetra8_512[_capture]" in launches_by_path; K3's level-0 ms by
+     CUDA events against its bytes bound (36 B a ray and a triangle over
+     3.35 TB/s); then phase 33's gates on the same frame (compiled =
+     eager on every lane, zero captures after the first).
 
 Phases 10, 16 and 22 take their profiled frame and per-launch
 host/device split from the same tool (profile_kernels, launch_split).
@@ -2954,6 +2970,88 @@ def main():
         return ok
     phase("35 fused finalize against the torch finalize on the compiled "
           "frame's own inputs", p_finalize)
+
+    # -- 36. SPD tetra at SizeFactor 9: K3 on the compiled frame -------------
+    def p_tetra():
+        from glome_tpu_torch.scenes.spd_tetra import tetra
+        t0 = time.perf_counter()
+        solid, lights, c = tetra(8)
+        tc = T.compile_scene(solid, lights)
+        tplan = MK.get_plan(tc)
+        tarrs = T.to_torch(tc.arrays(), dev)
+        print(f"  SPD tetra, 8 subdivisions: {tplan.n_prims} prims, K3 "
+              f"groups {tplan.external}, K2 groups {tplan.blocks}, host "
+              f"parse+compile+plan {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        tcfg = T.RenderConfig(xres=512, yres=512, maxdepth=3,
+                              background=(0.078, 0.361, 0.753))
+        want = {"mega_select": 2 * tcfg.maxdepth,
+                "mesh_block_select": 2 * tcfg.maxdepth}
+        renderer = T.Renderer(T.WavefrontTracer(tc, tcfg), c, tcfg)
+        fin_log = []
+        real = MK.finalize
+
+        def capture_frame():
+            MK.finalize = FinalizeTap(real, fin_log)
+            try:
+                return renderer.render(tarrs)
+            finally:
+                MK.finalize = real
+        reset_counts()
+        # the capture frame: its warm-ups' K1, K3 and finalize inputs are
+        # recorded and held against the plain versions and the torch
+        # finalize
+        (rgb, _depth), log = record_inputs(capture_frame)
+        ccounts = read_counts("spd_tetra8_512_capture")
+        reset_counts()
+        renderer.render(tarrs)
+        counts = read_counts("spd_tetra8_512")
+        print(f"  compiled frame: calls "
+              f"{[(n, a[rays_at[n]].shape[1]) for n, a in log]}")
+        ok = (tplan.external == [(0, 0)] and tplan.blocks == []
+              and sorted(n for n, _a in log)
+              == sorted(k for k, v in want.items() for _ in range(v))
+              and bool(torch.isfinite(rgb).all()))
+        ok &= check_recorded("spd_tetra8 compiled frame", log, True)
+        ok &= all(cn[k] == want.get(k, 0) for k in kernel_fns
+                  for cn in (ccounts, counts))
+        ok &= (ccounts["finalize_hit"] == counts["finalize_hit"]
+               == tcfg.maxdepth)
+        ok &= ccounts["plain"] == counts["plain"] == 0
+        ok &= ccounts["finalize_torch"] == counts["finalize_torch"] == 0
+        ok &= len(fin_log) == tcfg.maxdepth
+        for i, args in enumerate(fin_log):
+            wid = args[6]
+            fused = MK._finalize_fused(*args)
+            ref = MK._finalize_torch(*args)
+            torch.cuda.synchronize()
+            bad = hit_diff(fused, ref)
+            hits = int((wid >= 0).sum())
+            print(f"  finalize level {i}: {args[3].shape[0]} lanes, {hits} "
+                  f"hits; fused Hit = torch Hit bit for bit on every lane "
+                  f"and field: {not bad} {bad or ''}")
+            ok &= not bad and (i > 0 or hits > 0)
+        # K3's level-0 intersect call by CUDA events against its bound,
+        # the benchmark's K3_roofline's: 36 B a ray (its table column and
+        # seed) and 36 B a triangle (three vertices), each read once
+        k3_calls = [a for n, a in log if n == "mesh_block_select"]
+        if k3_calls:
+            args = k3_calls[0]
+            n = args[2].shape[1]
+            kms = cuda_ms(lambda: MSH.mesh_block_select(*args), 20)
+            bound = (n + tplan.n_prims) * 36 / HBM_BPS * 1e3
+            print(f"  [{smi_line}] K3 level-0 intersect, {n} rays against "
+                  f"{tplan.n_prims} triangles: {kms:.4f} ms, bound "
+                  f"{1e3 * bound:.2f} us ({100 * bound / kms:.2f}% of it)")
+        del renderer, log, fin_log
+
+        def make(frame):
+            r = T.Renderer(T.WavefrontTracer(tc, tcfg, frame=frame), c, tcfg)
+            return r.tracer, lambda: r.render(tarrs, 0.25)
+        return compiled_case("spd_tetra8_512x512_render", make, want,
+                             tcfg.maxdepth) and ok
+    phase("36 SPD tetra at SizeFactor 9 512x512 depth 3: K1 and K3 on the "
+          "compiled frame", p_tetra)
 
     if any(m.split(".")[0] in ("jax", "glome_tpu", "tools")
            for m in sys.modules):

@@ -899,19 +899,19 @@ def _unpack(table):
 
 def intersect_multi_table(compiled, arrays, table,
                           select: str = MK.KERNELS, route: str = MEGA,
-                          k2_live=None, tables=None) -> Hit:
+                          launches=None, tables=None) -> Hit:
     """Nearest hits of a ray table: (8, N) float32 component planes
     [ox,oy,oz,dx,dy,dz,tmax,sid] (dead lanes tmax 0, sid -1), through
     the named `route` (MEGA or GROUPS) and kernel set `select`
     (megakernel.KERNELS, or PLAIN to run the plain versions on any
-    device).  On MEGA a list `k2_live` gets each K2 launch's live lanes
-    (megakernel._run_blocks), and `tables` may hand in the scene's
-    megakernel.select_tables, which the batch then reads instead of
-    building its own."""
+    device).  On MEGA a list `launches` gets each K2 and K3 launch's
+    (kernel, live lanes) (megakernel._select_all), and `tables` may hand
+    in the scene's megakernel.select_tables, which the batch then reads
+    instead of building its own."""
     check_route(route)
     if route == MEGA:
         return MK.mega_intersect_table(compiled, arrays, _guard_dead(table),
-                                       select=select, k2_live=k2_live,
+                                       select=select, launches=launches,
                                        tables=tables)
     o, d, tmax, sid = _unpack(table)
     return intersect_multi(compiled, arrays, o, d, sid, tmax=tmax,
@@ -919,14 +919,14 @@ def intersect_multi_table(compiled, arrays, table,
 
 
 def shadow_query_table(compiled, arrays, table, select: str = MK.KERNELS,
-                       route: str = MEGA, k2_live=None, tables=None):
+                       route: str = MEGA, launches=None, tables=None):
     """Any-hit occlusion of a ray table as in intersect_multi_table
-    (row 6 = segment tmax, k2_live and tables as there); returns (N,)
+    (row 6 = segment tmax, launches and tables as there); returns (N,)
     bool blocked."""
     check_route(route)
     if route == MEGA:
         return MK.mega_shadow_table(compiled, arrays, _guard_dead(table),
-                                    select=select, k2_live=k2_live,
+                                    select=select, launches=launches,
                                     tables=tables)
     o, d, tmax, sid = _unpack(table)
     return shadow_query_multi(compiled, arrays, o, d, sid, tmax,

@@ -1926,17 +1926,18 @@ def select_tables(compiled, arrays):
 
 
 def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select,
-                k2_live=None, tables=None):
+                launches=None, tables=None):
     """Merge the block-dense groups (plan.blocks): each is one K2 launch
     seeded with the best t so far, so the chain keeps cross-group
-    culling.  A list `k2_live` gets each launch's live lanes (seed above
-    0), a 0-d device tensor, in launch order.  `tables`: select_tables'
-    "k2", or None to pack each group's tables here."""
+    culling.  A list `launches` gets ("k2", live lanes) of each launch,
+    its live lanes (seed above 0) a 0-d device tensor, in launch order.
+    `tables`: select_tables' "k2", or None to pack each group's tables
+    here."""
     from .block_kernel import block_pass
     for si, gi in _big_groups(compiled, plan.blocks, shadow):
         seed = _group_seed(rays, si, t, wid, shadow)
-        if k2_live is not None:
-            k2_live.append((seed > 0).sum())
+        if launches is not None:
+            launches.append(("k2", (seed > 0).sum()))
         t2, l2 = block_pass(compiled.scenes[si], arrays["scenes"][si], gi,
                             rays, seed, shadow, select,
                             None if tables is None else tables[(si, gi)])
@@ -1948,13 +1949,16 @@ def _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, select,
 
 
 def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select,
-                  tables=None):
+                  launches=None, tables=None):
     """Merge the giant flat-triangle groups (plan.external): each is one
-    K3 launch seeded with the best t so far.  `tables`: select_tables'
+    K3 launch seeded with the best t so far.  `launches`: as in
+    _run_blocks, ("k3", live lanes) a launch.  `tables`: select_tables'
     "k3", or None to pack each group's table here."""
     from .mesh_kernel import mesh_block_pass
     for si, gi in _big_groups(compiled, plan.external, shadow):
         seed = _group_seed(rays, si, t, wid, shadow)
+        if launches is not None:
+            launches.append(("k3", (seed > 0).sum()))
         t2, l2 = mesh_block_pass(compiled.scenes[si], arrays["scenes"][si],
                                  gi, rays, seed, shadow, select,
                                  None if tables is None
@@ -1967,10 +1971,11 @@ def _run_external(compiled, plan, arrays, rays, t, wid, shadow, select,
     return t, wid
 
 
-def _select_all(compiled, plan, arrays, rays, shadow, select, k2_live=None,
+def _select_all(compiled, plan, arrays, rays, shadow, select, launches=None,
                 tables=None):
     """K1, then the K2 groups, then the K3 groups, each launch seeded by
-    the best t so far: (t, wid, aux).  k2_live: as in _run_blocks.
+    the best t so far: (t, wid, aux).  `launches`: a list that gets each
+    K2 and K3 launch's (kernel, live lanes), as in _run_blocks.
     `tables`: select_tables' tables, or None to pack them here."""
     mega, block, mesh = kernel_set(select)
     if tables is None:
@@ -1980,9 +1985,9 @@ def _select_all(compiled, plan, arrays, rays, shadow, select, k2_live=None,
                       tables["k3"])
     t, wid, aux = mega(k1, rays, shadow)
     t, wid = _run_blocks(compiled, plan, arrays, rays, t, wid, shadow, block,
-                         k2_live, k2)
+                         launches, k2)
     t, wid = _run_external(compiled, plan, arrays, rays, t, wid, shadow, mesh,
-                           k3)
+                           launches, k3)
     return t, wid, aux
 
 
@@ -2020,17 +2025,17 @@ def mega_shadow(compiled, arrays, o, d, sid=None, tmax=None,
 
 
 def mega_intersect_table(compiled, arrays, table, select: str = KERNELS,
-                         k2_live=None, tables=None):
+                         launches=None, tables=None):
     """Table-native nearest hit: `table` is (8, N) float32 component
     planes [ox,oy,oz,dx,dy,dz,tmax,sid] (dead lanes tmax 0, sid -1).
     Returns the finalized Hit; o, d for finalize are the table's rows.
-    k2_live: as in _run_blocks; tables: select_tables' tables or None
+    launches: as in _select_all; tables: select_tables' tables or None
     (built here)."""
     plan = get_plan(compiled)
     rays = table.detach().clone()
     rays[6] = torch.clamp(rays[6], max=INFINITY)
     t, wid, aux = _select_all(compiled, plan, arrays, rays, False, select,
-                              k2_live, tables)
+                              launches, tables)
     o = table[0:3].t()
     d = table[3:6].t()
     return finalize(compiled, plan, arrays, o, d, t, wid, aux=aux,
@@ -2038,12 +2043,12 @@ def mega_intersect_table(compiled, arrays, table, select: str = KERNELS,
 
 
 def mega_shadow_table(compiled, arrays, table, select: str = KERNELS,
-                      k2_live=None, tables=None):
+                      launches=None, tables=None):
     """Table-native any-hit occlusion: `table` as in
     mega_intersect_table (row 6 = segment tmax; 0 = dead lane).
-    Returns (N,) bool blocked.  k2_live and tables as there."""
+    Returns (N,) bool blocked.  launches and tables as there."""
     plan = get_plan(compiled)
     _t, wid, _a = _select_all(compiled, plan, arrays,
                               table.detach().contiguous(), True, select,
-                              k2_live, tables)
+                              launches, tables)
     return wid >= 0

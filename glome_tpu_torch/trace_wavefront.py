@@ -216,13 +216,14 @@ class WavefrontTracer(Tracer):
         self.last_frame = {}
 
     @staticmethod
-    def _record_launches(level, kind, lanes, live, k2_live):
+    def _record_launches(level, kind, lanes, live, launches):
         """telemetry.launch of a batch's K1 launch (`live` lanes) and of
-        each of its K2 launches, which run the same lanes with k2_live's
-        live lanes (ints or pending() values)."""
+        each of its K2 and K3 launches, which run the same lanes:
+        `launches` holds their (kernel, live lanes), ints or pending()
+        values."""
         telemetry.launch("k1", level, kind, lanes, live)
-        for n in k2_live:
-            telemetry.launch("k2", level, kind, lanes, n)
+        for kernel, n in launches:
+            telemetry.launch(kernel, level, kind, lanes, n)
 
     def _segments(self):
         """Child-queue segment keys, in queue order."""
@@ -251,11 +252,12 @@ class WavefrontTracer(Tracer):
         dt = Q.dtype
         dev = Q.device
         Qc = Q.shape[1]
-        # each K2 launch's live lanes (0-d tensors), per batch kind
-        k2 = {"intersect": [], "shadow": []}
+        # each K2 and K3 launch's (kernel, live lanes as a 0-d tensor),
+        # per batch kind
+        sel = {"intersect": [], "shadow": []}
         hit = intersect_multi_table(cc, arrays, Q, select=self.select,
                                     route=self.route,
-                                    k2_live=k2["intersect"], tables=tables)
+                                    launches=sel["intersect"], tables=tables)
         self.last_batches += 1
 
         cdx, cdy, cdz = Q[3], Q[4], Q[5]
@@ -275,7 +277,8 @@ class WavefrontTracer(Tracer):
             blocked = shadow_query_table(cc, arrays, table,
                                          select=self.select,
                                          route=self.route,
-                                         k2_live=k2["shadow"], tables=tables)
+                                         launches=sel["shadow"],
+                                         tables=tables)
             self.last_batches += 1
             off = 0
             for li, idx in sh_segments:
@@ -401,14 +404,16 @@ class WavefrontTracer(Tracer):
             mask=stored_mask, extra=stored_extra,
         )
         if static:
-            # read with the child counts: each K2 launch's live lanes,
-            # intersect then shadow, and the shadow batch's
-            stored["k2_calls"] = (len(k2["intersect"]), len(k2["shadow"]))
+            # read with the child counts: each K2 and K3 launch's live
+            # lanes, intersect then shadow, and the shadow batch's
+            stored["sel_kernels"] = tuple(tuple(k for k, _n in sel[kind])
+                                          for kind in ("intersect", "shadow"))
             return self._spawn_static(
                 spawned, Qc, dt, dev, stored,
-                torch.stack(k2["intersect"] + k2["shadow"] + [sh_live]))
+                torch.stack([n for kind in ("intersect", "shadow")
+                             for _k, n in sel[kind]] + [sh_live]))
         stored["shadow_lanes"] = table.shape[1] if sh_segments else None
-        stored["k2_live"] = k2
+        stored["launches"] = sel
         if last or not child:
             Qnext = torch.zeros((8, 0), dtype=dt, device=dev)
         else:
@@ -546,9 +551,10 @@ class WavefrontTracer(Tracer):
         capture or replay fails; it never carries on eagerly.  On CPU
         tensors it runs its static-width levels eagerly.  A call is the
         telemetry span wavefront.trace; each intersect and shadow batch
-        is a telemetry.launch of "k1" and one of "k2" per block group it
-        runs (lanes launched, lanes live: for K2 those its seed keeps
-        alive, megakernel._run_blocks); the counter
+        is a telemetry.launch of "k1", one of "k2" per block group and
+        one of "k3" per external group it runs (lanes launched, lanes
+        live: for K2 and K3 those their seed keeps alive,
+        megakernel._run_blocks and _run_external); the counter
         megakernel.table_packs is the call's builds of the select tables
         (megakernel.pack_tables.calls: one a batch in the eager frame,
         one a call in the compiled frame); the counters
@@ -604,16 +610,16 @@ class WavefrontTracer(Tracer):
             stored_levels.append(stored)
             if self.route == MEGA:
                 # exact queues: every lane launched holds a live ray
-                # (K2's are those of the group's scene, and in a shadow
-                # batch those K1 left unblocked)
-                k2 = {k: [telemetry.pending(n) for n in v]
-                      for k, v in stored["k2_live"].items()}
+                # (K2's and K3's are those of the group's scene, and in a
+                # shadow batch those K1 left unblocked)
+                sel = {kind: [(k, telemetry.pending(n)) for k, n in v]
+                       for kind, v in stored["launches"].items()}
                 self._record_launches(level, "intersect", lanes, lanes,
-                                      k2["intersect"])
+                                      sel["intersect"])
                 sh = stored["shadow_lanes"]
                 if sh is not None:
                     self._record_launches(level, "shadow", sh, sh,
-                                          k2["shadow"])
+                                          sel["shadow"])
 
         color = C.ca_transparent((0,), dt, o.device)
         t = torch.zeros((0,), dtype=dt, device=o.device)
@@ -676,11 +682,12 @@ class WavefrontTracer(Tracer):
                                           else ((), (Q,) + flat_tables)))
                 levels.append(stored)
                 nc = stored["counts"].numel()
-                ni, ns = stored["k2_calls"]
+                ki, ks = stored["sel_kernels"]
+                ni, ns = len(ki), len(ks)
                 read = None
                 if not last and nc:
                     # the level's one host read: its child counts and its
-                    # K2 and shadow batches' live lanes
+                    # K2, K3 and shadow batches' live lanes
                     with telemetry.span("wavefront.count_read"):
                         read = stored["read"].tolist()
                     run.count("host_reads")
@@ -692,12 +699,12 @@ class WavefrontTracer(Tracer):
                             [telemetry.pending(stored["read"][k:k + 1])
                              for k in range(i, j)])
                 self._record_launches(level, "intersect", B, live,
-                                      lives(nc, nc + ni))
+                                      zip(ki, lives(nc, nc + ni)))
                 if n_shadow:
                     k1 = nc + ni + ns
                     self._record_launches(level, "shadow", n_shadow * B,
                                           lives(k1, k1 + 1)[0],
-                                          lives(nc + ni, k1))
+                                          zip(ks, lives(nc + ni, k1)))
                 if last:
                     break
                 n = sum(read[:nc]) if read is not None else 0

@@ -6,13 +6,16 @@ spans the benchmark reads (wavefront.trace on either route, none of its
 own from the recursive Tracer); the compiled frame's per-launch K1 lanes
 (the static widths) and live lanes (the eager frame's exact batch sizes
 on the same rays); host reads and images as the eager frame has them;
-the K2 launches of a scene with a block group, beside K1's, in both
-frames; the spans' intervals, mapped onto the profiler's clock, against
+the K2 launches of a scene with a block group and the K3 launches of a
+scene with an external triangle group, beside K1's, in both frames, and
+the benchmark's K3 live-lane share of them (none without such a group);
+the spans' intervals, mapped onto the profiler's clock, against
 the record_function ranges a CPU torch.profiler records for them; no
 range opened while no profiler collects; the ring's bounds.
 
 On the card (`cuda`): a capture frame and a replay frame record equal
-per-launch counts, K2's among them on a scene with a block group, and no
+per-launch counts, K2's and K3's among them on scenes with a block group
+and an external group, and no
 span, count or launch is recorded while a stream captures; a replayed
 still and AA frame build the select tables once a trace call
 (megakernel.table_packs), equal the eager frame, and a replay after an
@@ -21,6 +24,8 @@ in-place edit of boxes and cones reads the edit.
     python -m pytest tests/test_torch_telemetry.py -q
     python -m pytest --noconftest -m cuda tests/test_torch_telemetry.py -q
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -347,6 +352,84 @@ def test_a_scene_without_block_groups_records_no_k2(scene, cfg):
     assert "k2.lanes" not in f.counts
 
 
+@pytest.fixture(scope="module")
+def external_scene():
+    """SPD tetra at 2 subdivisions with its 64 triangles routed to K3 (the
+    routing thresholds lowered for the plan's build, as
+    tests/test_torch_mesh.py's "external" route)."""
+    from glome_tpu_torch import megakernel as MK
+    from glome_tpu_torch.scenes.spd_tetra import tetra
+    solid, lights, cam = tetra(2)
+    compiled = T.compile_scene(solid, lights)
+    old = MK.MEGA_EXT_MIN, MK.BLOCK_VMEM_MAX
+    MK.MEGA_EXT_MIN, MK.BLOCK_VMEM_MAX = 8, 0
+    try:
+        plan = MK.get_plan(compiled)
+        assert plan.external == [(0, 0)] and not plan.blocks
+    finally:
+        MK.MEGA_EXT_MIN, MK.BLOCK_VMEM_MAX = old
+    return compiled, T.to_torch(compiled.arrays(), "cpu"), cam
+
+
+@pytest.fixture
+def k3_seeds(monkeypatch):
+    """The live lanes (seed above 0) of every K3 call, in call order, as
+    the plain K3 (the CPU's) is handed them."""
+    from glome_tpu_torch import mesh_kernel as MSH
+    seen, plain = [], MSH.mesh_block_select_plain
+
+    def tap(plan, tri, rays, seed, shadow=False):
+        seen.append(int((seed > 0).sum()))
+        return plain(plan, tri, rays, seed, shadow)
+    tap.calls = 0           # the plain version counts its calls by name
+    monkeypatch.setattr(MSH, "mesh_block_select_plain", tap)
+    return seen
+
+
+def _k3_live_lane_pct():
+    """The benchmark's wavefront.k3_live_lane_pct over the last frame."""
+    from benchmark.harness import manifest as M
+    run = types.SimpleNamespace(frames=1, outside_s=[1.0], prof=None,
+                                mix={"profile_frames": 8})
+    return M.reader("wavefront.k3_live_lane_pct")(run)
+
+
+@pytest.mark.parametrize("frame", [COMPILED, EAGER])
+def test_k3_launches_are_recorded_beside_k1s(external_scene, cfg, k3_seeds,
+                                             frame):
+    compiled, arrays, cam = external_scene
+    view = T.Renderer(T.WavefrontTracer(compiled, cfg, frame=frame), cam,
+                      cfg)
+    before = _last()
+    view.render(arrays)
+    f, = _new(before)
+    k1 = [g for g in f.launches if g[0] == "k1"]
+    k3 = [g for g in f.launches if g[0] == "k3"]
+    # one K3 launch per external group and batch, on the batch's lanes,
+    # its live lanes those its seed keeps alive; no K2
+    assert len(k3) == len(k1) == 2 * cfg.maxdepth == len(f.launches) / 2
+    assert [g[1:4] for g in k3] == [g[1:4] for g in k1]
+    assert [g[4] for g in k3] == k3_seeds
+    assert f.counts["k3.lanes"] == f.counts["k1.lanes"]
+    assert f.counts["k3.live_lanes"] == sum(k3_seeds)
+    assert f.counts["k3.lanes"] >= f.counts["k3.live_lanes"] > 0
+    assert k3[1][2] == "shadow" and 0 < k3[1][4] <= k1[1][4]
+    assert _k3_live_lane_pct() == pytest.approx(
+        100.0 * sum(k3_seeds) / f.counts["k3.lanes"])
+    if frame == COMPILED:
+        assert f.counts["k3.lanes"] > f.counts["k3.live_lanes"]
+
+
+def test_a_scene_without_external_groups_records_no_k3(scene, cfg):
+    compiled, arrays, cam = scene
+    before = _last()
+    T.Renderer(T.WavefrontTracer(compiled, cfg), cam, cfg).render(arrays)
+    f, = _new(before)
+    assert "k3.lanes" not in f.counts
+    assert not [g for g in f.launches if g[0] == "k3"]
+    assert _k3_live_lane_pct() is None
+
+
 # --- the profiler's clock -------------------------------------------------------
 
 def _profiled_frame(view, arrays):
@@ -453,6 +536,32 @@ def test_k2_capture_and_replay_frames_record_the_same_launches(block_scene):
     # eager frame's
     assert [g[4] for g in k2[1]] == [w[4] for w in k2[2]]
     assert k2[2][1][4] < k2[2][1][3]
+
+
+@pytest.mark.cuda
+def test_k3_capture_and_replay_frames_record_the_same_launches(
+        external_scene):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    compiled, _cpu, cam = external_scene
+    arrays = T.to_torch(compiled.arrays(), torch.device("cuda", 0))
+    cfg = T.RenderConfig(xres=64, yres=48)
+    tracer = T.WavefrontTracer(compiled, cfg)
+    assert tracer.frame == COMPILED
+    view = T.Renderer(tracer, cam, cfg)
+    before = _last()
+    view.render(arrays, 0.5)
+    view.render(arrays, 0.5)
+    T.Renderer(T.WavefrontTracer(compiled, cfg, frame=EAGER), cam,
+               cfg).render(arrays, 0.5)
+    torch.cuda.synchronize()
+    cap, rep, eager = _new(before)
+    k3 = [[g for g in f.launches if g[0] == "k3"] for f in (cap, rep, eager)]
+    assert len(k3[0]) == 2 * cfg.maxdepth
+    assert k3[0] == k3[1]
+    # K3's live lanes as the eager frame's
+    assert [g[4] for g in k3[1]] == [w[4] for w in k3[2]]
+    assert k3[2][0][4] == k3[2][0][3] == cfg.xres * cfg.yres
 
 
 @pytest.mark.cuda
